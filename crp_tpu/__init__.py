@@ -1,6 +1,6 @@
-"""crp_tpu — TPU-native communication-reduced SpMM framework.
+"""crp_tpu — communication-reduced distributed SpMM in JAX.
 
-A brand-new JAX/XLA/Pallas re-design of the capabilities of
+A JAX/XLA/Pallas re-design of the capabilities of
 scalable-matrix/CRP-SpMM (see /root/reference, SURVEY.md): distributed
 ``C := A @ B`` with sparse CSR ``A`` and dense ``B``/``C``, built around
 
@@ -12,7 +12,8 @@ scalable-matrix/CRP-SpMM (see /root/reference, SURVEY.md): distributed
     ``src/rowpara_spmm.c``),
   * any-layout <-> internal-layout resharding of A/B/C (reference:
     ``src/mat_redist.c``, ``deprecated/src/crpspmm.c``),
-  * an MXU-tiled Pallas local SpMM kernel (replacing MKL / cuSPARSE),
+  * local SpMM kernels in plain XLA and a Pallas kernel for NVIDIA GPUs
+    (replacing MKL / cuSPARSE),
   * phase-timing statistics and a communicated-element audit
     (planned vs actual vs minimal).
 """

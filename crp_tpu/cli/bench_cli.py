@@ -2,7 +2,7 @@
 
 Usage: crp-bench <mtx-file|synth:spec> <num-of-B-col> <num-of-tests>
                  <part-method> [<check-correct>] [--engine=para2d|rowpara|crp]
-                 [--kernel=auto|segsum|ell|pallas|pallas_halo|dd]
+                 [--kernel=auto|segsum|ell|triton|dd]
                  [--dtype=float32|float64] [--devices=N] [--profile=DIR]
 
 Mirrors the reference CLI (``README.md:33-40``): plan -> distribute ->
@@ -39,14 +39,20 @@ def main(argv=None) -> int:
     engine_kind = opt.get("engine", "para2d")
     dtype = np.dtype(opt.get("dtype", "float32"))
     if "distributed" in opt:
-        # multi-host pod run: the same command runs on every host
-        # (scripts/pod_suite.sh), jax.distributed derives the rank from the
-        # launcher env — the reference's srun/MPI init (SC23_AD/scripts)
+        # multi-process run: the same command runs in every process,
+        # jax.distributed derives the rank from the launcher env — the
+        # reference's srun/MPI init (SC23_AD/scripts)
         from ..shard.layout import init_distributed
 
         init_distributed()
 
     import jax
+
+    from ..utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
+    if dtype == np.float64:
+        jax.config.update("jax_enable_x64", True)
 
     from ..config import SpmmConfig
     from ..plan.partition1d import csr_row_partition
@@ -74,10 +80,10 @@ def main(argv=None) -> int:
 
     if engine_kind == "para2d":
         from ..engine.para2d import Para2dSpmm
-        from ..shard.layout import make_mesh_auto
+        from ..shard.layout import make_mesh_2d
 
         eng = Para2dSpmm(
-            a, plan, mesh=make_mesh_auto(plan.pm, plan.pn),
+            a, plan, mesh=make_mesh_2d(plan.pm, plan.pn),
             config=config, dtype=dtype,
         )
     elif engine_kind == "rowpara":
@@ -94,7 +100,7 @@ def main(argv=None) -> int:
     elif engine_kind == "crp":
         from ..engine.crp import CrpSpmm
         from ..plan.bandwidth import calc_bandwidth_part2d
-        from ..shard.layout import make_mesh_auto
+        from ..shard.layout import make_mesh_2d
         from ..shard.redist import BlockDist
         from ..utils.blocks import uniform_displs
 
@@ -105,7 +111,7 @@ def main(argv=None) -> int:
         )
         eng = CrpSpmm(
             a, glb_n, user_B, user_C, nproc=nproc,
-            mesh=make_mesh_auto(bp.np_row, bp.np_col),
+            mesh=make_mesh_2d(bp.np_row, bp.np_col),
             config=config, dtype=dtype, bplan=bp,
         )
     else:
@@ -117,7 +123,7 @@ def main(argv=None) -> int:
     profile_dir = opt.get("profile")
     if profile_dir:
         # device-level trace (the reference's phase timers only see host
-        # fences; jax.profiler sees the XLA/TPU timeline)
+        # fences; jax.profiler sees the device timeline)
         jax.profiler.start_trace(profile_dir)
     for _ in range(n_test):
         st = time.perf_counter()

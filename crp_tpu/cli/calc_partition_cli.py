@@ -1,6 +1,6 @@
 """crp-calc-partition — standalone bandwidth-bound (v1) planner driver.
 
-TPU-native analog of the reference's standalone partition calculator
+Analog of the reference's standalone partition calculator
 (``deprecated/examples/crpspmm_calc_partition.c``): load a matrix, print
 its size / nnz / bandwidth summary, then run the greedy split-M / split-N
 bandwidth-bound search with the per-factor cost trace the reference prints

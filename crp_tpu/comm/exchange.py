@@ -209,7 +209,7 @@ def exchange_b_ring(
 ) -> jax.Array:
     """p2p-ring exchange: one distance-``s`` ``ppermute`` per shift.
 
-    The TPU counterpart of the reference's nonblocking p2p ring
+    The counterpart of the reference's nonblocking p2p ring
     (``RP_SPMM_P2P=1``, ``src/rowpara_spmm.c:275-303``): at shift ``s`` every
     shard sends its planned rows directly to the peer ``s`` ranks ahead and
     receives from the peer ``s`` ranks behind.  The shifts are unrolled and

@@ -1,8 +1,9 @@
 """Overlapped ring SpMM: B-row exchange fused with partial local compute.
 
 The reference overlaps nothing inside exec (only two init-time
-``MPI_Iallgatherv``'s, ``src/para2d_spmm.c:81-83``); comm/compute overlap on
-the ICI is the new-design requirement called out in SURVEY.md section 7.
+``MPI_Iallgatherv``'s, ``src/para2d_spmm.c:81-83``); comm/compute overlap
+between devices is the new-design requirement called out in SURVEY.md
+section 7.
 
 Decomposition: split each shard's local A by the *owner* of the referenced
 B row.  The self part (typically the bulk for banded/reordered matrices)
@@ -15,9 +16,9 @@ pipelines transfer ``s+1`` under compute ``s``.
 
     C_i  =  A_{i,self} @ B_i  +  sum_s  A_{i,(i-s)%p} @ recv_s
 
-The self part uses the engine's configured local kernel (Pallas MXU
-windowed kernel included); remote shifts use a padded COO segment-sum whose
-column indices address the shift's receive slots.
+The self part uses the engine's configured local kernel; remote shifts use
+a padded COO segment-sum whose column indices address the shift's receive
+slots.
 """
 
 from __future__ import annotations
@@ -45,8 +46,7 @@ class RingSpmmPack:
     step_vals: np.ndarray      # (p, p-1, R) dtype; pad 0
     self_arrays: tuple         # stacked kernel arrays for the self part
     self_fn: object            # local_fn(self_arrays_slice, b_loc) -> (max_m, n)
-    self_kind: str             # kernel kind actually used for the self part
-    min_b_rows: int            # b_loc rows the self kernel needs (pallas DMA)
+    self_kind: str             # kernel kind used for the self part
 
 
 def build_ring_spmm(
@@ -56,7 +56,6 @@ def build_ring_spmm(
     max_m: int,
     dtype,
     kernel_kind: str = "segsum",
-    mxu_precision: str = "highest",
 ) -> RingSpmmPack:
     """Split each shard's A by B-row owner and pack for the overlapped exec.
 
@@ -65,7 +64,6 @@ def build_ring_spmm(
     (its ``pair_rows[i][j]`` fix the receive slot order per shift).
     """
     from ..kernels.dispatch import pack_local_kernel
-    from ..kernels.spmm_pallas import UnsupportedSparsity
 
     B_row_displs = np.asarray(B_row_displs, dtype=np.int64)
     p = plan.p
@@ -107,22 +105,14 @@ def build_ring_spmm(
             step_cols[i, k, :nz] = c
             step_vals[i, k, :nz] = v
 
-    self_kind = kernel_kind
-    try:
-        self_arrays, self_fn = pack_local_kernel(
-            self_shards, max_m, dtype, self_kind, mxu_precision=mxu_precision
-        )
-    except UnsupportedSparsity:
-        self_kind = "segsum"
-        self_arrays, self_fn = pack_local_kernel(
-            self_shards, max_m, dtype, self_kind
-        )
+    self_arrays, self_fn = pack_local_kernel(
+        self_shards, max_m, dtype, kernel_kind
+    )
 
     return RingSpmmPack(
         p=p, S=plan.S, R=R, max_m=max_m,
         step_rows=step_rows, step_cols=step_cols, step_vals=step_vals,
-        self_arrays=self_arrays, self_fn=self_fn, self_kind=self_kind,
-        min_b_rows=getattr(self_fn, "min_b_rows", 1),
+        self_arrays=self_arrays, self_fn=self_fn, self_kind=kernel_kind,
     )
 
 
@@ -140,9 +130,8 @@ def ring_spmm(
     """Device-side overlapped exec; runs inside shard_map, returns (max_m, n)."""
     p, S = send_idx.shape
     me = jax.lax.axis_index(axis_name)
-    # no comm dependence -> overlaps the ring; kernels may return extra
-    # zero rows past max_m (pallas group padding), align for accumulation
-    c = self_fn(self_arrays, b_loc)[:max_m]
+    # no comm dependence -> overlaps the ring
+    c = self_fn(self_arrays, b_loc)
     for s in range(1, p):
         dst = (me + s) % p
         sendbuf = jnp.take(

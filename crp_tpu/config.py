@@ -4,8 +4,8 @@ The reference configures its algorithm switches through environment variables
 read with ``GET_ENV_INT_VAR`` (reference ``src/utils.h:71-87``), e.g.
 ``RP_SPMM_P2P`` / ``RP_SPMM_REIDX`` (``src/rowpara_spmm.c:42-43``) and
 ``A2A_B_FINEGRAIN`` (``deprecated/src/crpspmm.c:294``).  We keep the same
-three switches (with the same env names and defaults) plus TPU-specific knobs,
-carried in a small dataclass.
+three switches (with the same env names and defaults) plus this library's own
+(dtype, kernel, overlap, BC layout), carried in a small dataclass.
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ import dataclasses
 import logging
 import os
 from typing import Optional
+
+import numpy as np
 
 logger = logging.getLogger("crp_tpu")
 
@@ -66,7 +68,7 @@ class SpmmConfig:
         ring schedule, 0 -> a single padded ``lax.all_to_all``.
     rb_reidx:
         Compact never-referenced B rows out of the local receive buffer
-        (``RP_SPMM_REIDX``, ``src/rowpara_spmm.c:81-86``).  On TPU this also
+        (``RP_SPMM_REIDX``, ``src/rowpara_spmm.c:81-86``).  This also
         shrinks the gather index space of the local kernel.
     a2a_b_finegrain:
         v1 engine switch: exchange exactly the referenced B rows instead of
@@ -74,29 +76,20 @@ class SpmmConfig:
         ``deprecated/src/crpspmm.c:294-396``).
     dtype:
         Value dtype for A/B/C when the engine constructor does not receive
-        an explicit ``dtype``.  Defaults to fp64 like the reference (runs
-        natively on CPU meshes); TPU runs typically pass float32, or use
-        kernel="dd" for fp64-class accuracy on fp32 hardware.
+        an explicit ``dtype``.  Defaults to fp64 like the reference, which
+        runs natively on the CPU and the GPU but needs ``jax_enable_x64``
+        (the engines refuse float64 without it, see :func:`engine_dtype`).
     kernel:
-        Local SpMM kernel: "auto" | "segsum" (gather + segment-sum, runs
-        everywhere) | "ell" | "pallas" (MXU windowed kernel; routes to the
-        ragged gathered-window hybrid when the uniform window is
-        infeasible or wasteful) | "ragged" (force the ragged hybrid) |
-        "gather" (one-hot-MXU block reduce over every nnz: the
-        scrambled/pure power-law class, fp32 only) | "dd" (double-float
-        fp64-class; on TPU auto-upgrades to the Ozaki MXU kernel when the
-        cover fits) | "dd_mxu" (force the fp64-class MXU kernel) |
-        "pallas_halo" (fused kernel: B halo rows RDMA-pushed between chips
-        inside the kernel, compute gated per chunk — banded/reordered
-        matrices).  A kernel that rejects the matrix's sparsity at pack
-        time falls back along a structure-aware chain (fp32 TPU:
-        gather -> segsum; dd-class: VPU dd; else segsum — override with
-        ``CRP_TPU_FALLBACK``), so any CSR runs at the best available rate
-        like the reference's MKL/cuSPARSE seam
+        Local SpMM kernel: "auto" (the GPU's measured choice per dtype,
+        ``segsum`` elsewhere — ``kernels.dispatch.resolve_auto_kernel``) |
+        "segsum" (gather + segment-sum, runs everywhere) | "ell" |
+        "triton" (the Pallas CSR kernel, CUDA GPUs only) | "dd"
+        (double-float fp64-class from fp32 arithmetic).  Every kind takes
+        any CSR, like the reference's MKL/cuSPARSE seam
         (``src/rowpara_spmm.c:398-407``).
     overlap:
-        Overlap the B-row exchange with compute (TPU-only design, no
-        reference equivalent — SURVEY.md section 7 calls this out as new):
+        Overlap the B-row exchange with compute (no reference equivalent —
+        SURVEY.md section 7 calls this out as new):
         the self part of A (owner == this shard) multiplies the owned B
         block concurrently with the ring transfers, and each shift's
         arriving rows feed a partial SpMM immediately.  Implies the ring
@@ -111,14 +104,10 @@ class SpmmConfig:
     overlap: int = 0
     # reference BC_layout (rp_spmm_init arg, src/rowpara_spmm.c:225-264,
     # 400-407): 1 = B arrives as (n, k) and C returns as (n, m) — the
-    # col-major view.  On TPU the conversion is a device-side XLA
-    # transpose at HBM speed (XLA owns physical layouts; only the LOGICAL
-    # orientation of the user arrays needs a switch).
+    # col-major view.  The conversion is a device-side XLA transpose
+    # (XLA owns physical layouts; only the LOGICAL orientation of the user
+    # arrays needs a switch).
     bc_layout: int = 0
-    # MXU pass scheme for fp32 data in the pallas kernel:
-    # "highest" = full fp32 emulation (~1e-7), "x3" = 3-pass bf16 split
-    # (~5e-6, faster on MXU-bound shapes), "default" = 1 bf16 pass (~1e-3)
-    mxu_precision: str = "highest"
 
     @classmethod
     def from_env(cls) -> "SpmmConfig":
@@ -134,5 +123,22 @@ class SpmmConfig:
             bc_layout=get_env_int(
                 "CRP_TPU_BC_LAYOUT", 0, 0, 1, var_name="BC_layout"
             ),
-            mxu_precision=os.environ.get("CRP_TPU_MXU_PREC", "highest"),
         )
+
+
+def engine_dtype(dtype, config: SpmmConfig) -> np.dtype:
+    """The value dtype an engine computes in: ``dtype`` if given, else
+    ``config.dtype``.  float64 needs ``jax_enable_x64``: without it JAX
+    would silently compute in float32, so the engines refuse instead."""
+    dt = np.dtype(dtype if dtype is not None else config.dtype)
+    if dt == np.float64:
+        import jax
+
+        if not jax.config.jax_enable_x64:
+            raise ValueError(
+                "float64 needs jax_enable_x64, which is off: call "
+                "jax.config.update('jax_enable_x64', True) (or set "
+                "JAX_ENABLE_X64=1) before building the engine, or pass "
+                "dtype=float32"
+            )
+    return dt

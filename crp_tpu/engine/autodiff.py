@@ -1,14 +1,14 @@
 """Differentiable sparse x dense SpMM (``jax.custom_vjp`` over the engines).
 
 The reference is a standalone compute library — its drivers call
-``*_spmm_exec`` and stop (``examples/test_rp_spmm.c:9-14``).  A TPU-native
+``*_spmm_exec`` and stop (``examples/test_rp_spmm.c:9-14``).  A JAX
 framework composes with JAX's functional transforms instead: GNN-style
 training multiplies activations by a *static* sparse adjacency every step
 and needs gradients to flow through that product under ``jax.grad``/``jit``.
 
 ``C = A @ B`` is linear in B, so the VJP with respect to B is exact and
 cheap: ``dB = A^T @ dC``.  Both directions run full planned engines —
-sparsity-aware B-row exchange plus the MXU local kernels — with ``A`` and
+sparsity-aware B-row exchange plus the local kernels — with ``A`` and
 ``A^T`` planned/packed once at init (``CSRMatrix.transpose`` is an O(nnz)
 host counting sort).  Gradients with respect to A's values are not defined
 (A is static data, matching the reference's usage; densifying dA would be
@@ -48,11 +48,10 @@ class DifferentiableSpmm:
     """``op(B_shards) -> C_shards`` with a custom VJP (dB = A^T @ dC).
 
     Parameters mirror :class:`RowParaSpmm`; the transposed engine reuses
-    the same mesh and config.  Kernel kinds that repack B (``dd``/
-    ``dd_mxu``), mutate buffers across calls (``pallas_halo``), or change
-    the logical orientation (``bc_layout``) are rejected — their data
-    layouts are not the plain (p, rows, n) shard form gradients flow
-    through.
+    the same mesh and config.  The ``dd`` kind (which repacks B as hi/lo
+    halves) and ``bc_layout`` (which changes the logical orientation) are
+    rejected — their data layouts are not the plain (p, rows, n) shard
+    form gradients flow through.
     """
 
     def __init__(
@@ -65,28 +64,11 @@ class DifferentiableSpmm:
         config: Optional[SpmmConfig] = None,
         dtype=np.float32,
     ) -> None:
-        config = config or SpmmConfig(kernel="segsum", dtype="float32")
-        if config.kernel == "auto":
-            # resolve here with halo/dd OFF: the engine's own auto would
-            # pick pallas_halo on a multi-shard TPU, whose exec mutates
-            # the push buffer across calls (a tracer leak under grad)
-            import dataclasses
-
-            from ..kernels.dispatch import resolve_auto_kernel
-
-            config = dataclasses.replace(
-                config,
-                kernel=resolve_auto_kernel(
-                    np.dtype(dtype), len(np.asarray(A_row_displs)) - 1,
-                    overlap=bool(config.overlap),
-                    allow_halo=False, allow_dd=False,
-                ),
-            )
-        if config.kernel in ("dd", "dd_mxu", "pallas_halo"):
+        config = config or SpmmConfig(dtype="float32")
+        if config.kernel == "dd":
             raise ValueError(
                 "DifferentiableSpmm supports the plain-B kernel paths "
-                "(segsum/ell/pallas/ragged/gather); "
-                f"kernel={config.kernel!r} repacks B or carries state"
+                "(auto/segsum/ell/triton); kernel='dd' repacks B"
             )
         if config.bc_layout:
             raise ValueError("DifferentiableSpmm takes row-major (k, n) B")

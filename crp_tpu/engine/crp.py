@@ -1,6 +1,6 @@
 """CrpSpmm — the any-layout end-to-end engine (v1 ``crpspmm_engine``).
 
-TPU-native counterpart of ``deprecated/src/crpspmm.{h,c}``: the user hands
+Counterpart of ``deprecated/src/crpspmm.{h,c}``: the user hands
 over B in arbitrary per-device 2D blocks and wants C back in arbitrary 2D
 blocks; the engine
 
@@ -36,9 +36,9 @@ import jax
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from ..config import SpmmConfig
+from ..config import SpmmConfig, engine_dtype
 from ..comm.exchange import build_b_exchange, exchange_b, exchange_b_ring
-from ..kernels.dispatch import pack_with_fallback
+from ..kernels.dispatch import pack_local_kernel, resolve_auto_kernel
 from ..plan.bandwidth import calc_bandwidth_part2d
 from ..shard.layout import make_mesh_2d
 from ..shard.redist import BlockDist, RedistEngine
@@ -71,7 +71,7 @@ class CrpSpmm:
         self.m, self.k, self.n = a.nrow, a.ncol, n
         self.nproc = nproc or user_B.p
         assert user_B.p == self.nproc and user_C.p == self.nproc
-        self.dtype = np.dtype(dtype if dtype is not None else self.config.dtype)
+        self.dtype = engine_dtype(dtype, self.config)
         self.timer = Timer()
         t0 = Timer()
         with t0.phase("init"):
@@ -98,46 +98,27 @@ class CrpSpmm:
         self.mesh = mesh if mesh is not None else make_mesh_2d(pm, pn)
 
         # kernel + schedule switches (crpspmm.c honors its MKL/cuSPARSE and
-        # finegrain modes everywhere; the TPU engine honors its kernel,
+        # finegrain modes everywhere; this engine honors its kernel,
         # rb_p2p and overlap switches here too)
-        from ..kernels.dispatch import resolve_auto_kernel
-
         self.overlap = bool(self.config.overlap)
         fine = bool(self.config.a2a_b_finegrain)
         self.fine = fine
         kind = self.config.kernel
         if kind == "auto":
-            kind = resolve_auto_kernel(
-                self.dtype, pm, overlap=self.overlap, allow_halo=not fine
-            )
-        self.is_dd = kind in ("dd", "dd_mxu")
+            kind = resolve_auto_kernel(self.dtype)
+        self.is_dd = kind == "dd"
         if self.is_dd and self.overlap:
             raise ValueError(
                 "kernel='dd' is incompatible with overlap=1: the per-shift "
                 "partial SpMM is plain fp32 and would lose the dd accuracy"
             )
-        self.is_halo = kind == "pallas_halo"
-        if self.is_halo and self.overlap:
-            raise ValueError(
-                "kernel='pallas_halo' fuses exchange and compute already; "
-                "overlap=1 has no meaning for it"
-            )
-        if self.is_halo and fine:
-            raise ValueError(
-                "kernel='pallas_halo' implements the coarse contiguous-"
-                "window geometry (crpspmm.c:294-338); A2A_B_FINEGRAIN=1 "
-                "requests exact-row exchange — use kernel='pallas'"
-            )
 
-        # internal layouts.  The fused halo kernel owns the internal B row
-        # partition (TK-aligned slab boundaries) — decide BEFORE the
-        # boundaries are frozen into the rd_B redistribution tables, which
-        # needs the A row panels first.
+        # internal layouts
         rd_rows = bp.B_rd_row_displs          # (pm+1,) uniform k slabs
         bc_cols = bp.BC_colptr                # (pn+1,) uniform n slabs
         m_idx = bp.m_split_idx
 
-        # A row panels (step 3's A side, hoisted: the halo plan packs them).
+        # A row panels (step 3's A side).
         # Host-global A: panels sliced host-side, replicated by placement.
         # Distributed A: the real device path — rd_Ai/rd_Av nnz reshard +
         # all_gather along pn (crpspmm.c:240-265,559-584).
@@ -154,25 +135,6 @@ class CrpSpmm:
             panel_nnz0 = np.array([pl_.nnz for pl_ in panels], dtype=np.int64)
             self.nelem_A_agv = 0 if pn == 1 else int(panel_nnz0.sum() * pn)
         self.max_m = max(max(pl_.nrow for pl_ in panels), 1)
-
-        from ..kernels.spmm_pallas import UnsupportedSparsity
-
-        if self.is_halo:
-            import logging
-
-            from ..kernels.spmm_halo import align_displs, build_halo_plan
-
-            aligned = align_displs(rd_rows, self.k)
-            try:
-                self.hplan = build_halo_plan(panels, aligned, dtype=self.dtype)
-                rd_rows = aligned
-            except UnsupportedSparsity as e:
-                logging.getLogger("crp_tpu").warning(
-                    "pallas_halo unavailable (%s); falling back to the "
-                    "unfused pallas path", e,
-                )
-                self.is_halo = False
-                kind = "pallas"
 
         internal_B = BlockDist.from_grid(rd_rows, bc_cols)
         internal_C = BlockDist.from_grid(m_idx, bc_cols)
@@ -203,32 +165,11 @@ class CrpSpmm:
                 x, NamedSharding(self.mesh, P("pm", *([None] * (x.ndim - 1))))
             )
 
-        if self.is_halo:
-            hp = self.hplan
-            self.kernel_kind = "pallas_halo"
-            # self.max_m stays the rd_C internal block height; the kernel's
-            # G*TM >= max_m output is trimmed in the shard_map body
-            self._tn = 256 if self.max_nloc % 256 == 0 else 128
-            self._n_pad = -(-self.max_nloc // self._tn) * self._tn
-            self._halo_arrays = (
-                hp.ws_rel, hp.push_src, hp.push_dev, hp.push_dst,
-                hp.npush, hp.exp_from, hp.wait_bound,
-            )
-            self.d_halo = tuple(put_pm(x) for x in self._halo_arrays)
-            self.d_panels = put_pm(hp.a_panels)
-            bspec = NamedSharding(self.mesh, P("pm", "pn", None, None))
-            self.d_buf = jax.device_put(
-                np.zeros(
-                    (pm, pn, hp.buf_rows, self._n_pad), self.dtype
-                ),
-                bspec,
-            )
-        elif self.overlap:
+        if self.overlap:
             from ..comm.ring import build_ring_spmm
 
             self.ring = build_ring_spmm(
                 panels, self.xplan, rd_rows, self.max_m, self.dtype, kind,
-                mxu_precision=self.config.mxu_precision,
             )
             self.kernel_kind = self.ring.self_kind
             self.d_kernel = tuple(put_pm(x) for x in self.ring.self_arrays)
@@ -241,10 +182,6 @@ class CrpSpmm:
                 (self.ring.step_rows, self.ring.step_cols, self.ring.step_vals)
             )
             self.d_send_idx = put_pm(self.xplan.send_idx)
-            # rd_B's internal slab height (max_k) is already frozen in the
-            # redist tables — pad b_loc up to the self kernel's window reach
-            # inside the shard_map body instead of growing max_k
-            self._ring_pad = max(0, self.ring.min_b_rows - self.max_k)
         else:
             # compact panel colidx into the exchange buffer space
             shards_compact = []
@@ -256,18 +193,11 @@ class CrpSpmm:
                 else:
                     cc = (s.colidx - int(self.xplan.rowmap[i])).astype(np.int32)
                 shards_compact.append((s.rowptr, cc, s.val))
-            # structure-aware fallback walk (gather on fp32 TPU, then
-            # segsum; dd keeps its accuracy contract) lives in dispatch
-            arrays, self._local_fn, kind = pack_with_fallback(
+            arrays, self._local_fn = pack_local_kernel(
                 shards_compact, self.max_m, self.dtype, kind,
-                mxu_precision=self.config.mxu_precision,
-                is_dd=self.is_dd,
             )
             self.kernel_kind = kind
-            self._rb_rows = max(
-                self.xplan.rB_nrow_max,
-                getattr(self._local_fn, "min_b_rows", 1), 1,
-            )
+            self._rb_rows = max(self.xplan.rB_nrow_max, 1)
             self.d_kernel = tuple(put_pm(x) for x in arrays)
             self._kernel_specs = tuple(
                 P("pm", *([None] * (x.ndim - 1))) for x in arrays
@@ -278,7 +208,7 @@ class CrpSpmm:
             self.d_self_dst = put_pm(self.xplan.self_dst)
 
         self._spmm_jit = self._make_spmm()
-        if not (self.overlap or self.is_halo):
+        if not self.overlap:
             self._xch_jit, self._spmm_only_jit = self._make_staged()
 
         # ------- audit (crpspmm.c:448-456, 587-600); A counters set above
@@ -307,66 +237,18 @@ class CrpSpmm:
         bspec = P("pm", "pn", None, None)
         max_m = self.max_m
 
-        if self.is_halo:
-            import jax.numpy as jnp
-
-            from ..kernels.spmm_halo import (
-                halo_spmm_local, resolve_halo_precision,
-            )
-
-            hp = self.hplan
-            interpret = jax.default_backend() != "tpu"
-            pad_r = hp.max_k - self.max_k
-            pad_c = self._n_pad - self.max_nloc
-            max_nloc = self.max_nloc
-            kw = dict(
-                p=self.pm, pn_size=self.pn, TM=hp.TM, G=hp.G, W=hp.W,
-                Wc=hp.Wc, C_panel=hp.C_panel, TN=self._tn,
-                interpret=interpret,
-                precision=resolve_halo_precision(self.config.mxu_precision),
-            )
-
-            def local(*args):
-                plan_arrays = tuple(x[0] for x in args[:7])
-                panels_, b_loc, buf = args[7][0], args[8][0, 0], args[9][0, 0]
-                bl = (
-                    jnp.pad(b_loc, ((0, pad_r), (0, pad_c)))
-                    if (pad_r or pad_c) else b_loc
-                )
-                out, buf2 = halo_spmm_local(
-                    (plan_arrays[0], panels_) + plan_arrays[1:], bl, buf, **kw
-                )
-                out = out[:max_m, :max_nloc].astype(b_loc.dtype)
-                return out[None, None], buf2[None, None]
-
-            in_specs = tuple(
-                P("pm", *([None] * (x.ndim - 1)))
-                for x in self._halo_arrays
-            ) + (P("pm", None, None, None), bspec, bspec)
-            fn = jax.shard_map(
-                local, mesh=self.mesh, in_specs=in_specs,
-                out_specs=(bspec, bspec), check_vma=False,
-            )
-            return jax.jit(fn, donate_argnums=(9,))
-
         nk = len(self.d_kernel)
 
         if self.overlap:
-            import jax.numpy as jnp
-
             from ..comm.ring import ring_spmm
 
             self_fn = self.ring.self_fn
-            ring_pad = self._ring_pad
 
             def local(*args):
                 kernel = tuple(x[0] for x in args[:nk])
                 step_rows, step_cols, step_vals, send_idx, b_loc = args[nk:]
-                bl = b_loc[0, 0]
-                if ring_pad:  # self kernel's window DMAs reach past max_k
-                    bl = jnp.pad(bl, ((0, ring_pad), (0, 0)))
                 c = ring_spmm(
-                    bl, send_idx[0], kernel, self_fn,
+                    b_loc[0, 0], send_idx[0], kernel, self_fn,
                     step_rows[0], step_cols[0], step_vals[0], max_m, "pm",
                 )
                 return c[None, None]
@@ -387,9 +269,7 @@ class CrpSpmm:
                     b_loc[0, 0], send_idx[0], recv_dst[0], self_src[0],
                     self_dst[0], rB_nrow_max, "pm",
                 )
-                # pallas kernels return G*TM >= max_m rows; rd_C's internal
-                # layout is exactly max_m rows per panel, so trim here
-                return local_fn(kernel, rB)[:max_m][None, None]
+                return local_fn(kernel, rB)[None, None]
 
             in_specs = self._kernel_specs + (
                 P("pm", None, None), P("pm", None, None), pmspec, pmspec,
@@ -411,7 +291,6 @@ class CrpSpmm:
         ``t_spmm`` split, ``crpspmm.c:602-665``)."""
         rB_nrow_max = self._rb_rows
         local_fn = self._local_fn
-        max_m = self.max_m
         nk = len(self.d_kernel)
         pmspec = P("pm", None)
         bspec = P("pm", "pn", None, None)
@@ -425,7 +304,7 @@ class CrpSpmm:
 
         def spmm(*args):
             kernel = tuple(x[0] for x in args[:nk])
-            return local_fn(kernel, args[nk][0, 0])[:max_m][None, None]
+            return local_fn(kernel, args[nk][0, 0])[None, None]
 
         xch_fn = jax.jit(jax.shard_map(
             xch, mesh=self.mesh,
@@ -442,11 +321,6 @@ class CrpSpmm:
 
     # ------------------------------------------------------------------ exec
     def _spmm_fused(self, b4: jax.Array) -> jax.Array:
-        if self.is_halo:
-            c4, self.d_buf = self._spmm_jit(
-                *self.d_halo, self.d_panels, b4, self.d_buf
-            )
-            return c4
         if self.overlap:
             return self._spmm_jit(
                 *self.d_kernel, *self.d_step, self.d_send_idx, b4
@@ -513,8 +387,8 @@ class CrpSpmm:
                     b_int.block_until_ready()
                 b4 = b_int.reshape(self.pm, self.pn, self.max_k, self.max_nloc)
 
-            if self.overlap or self.is_halo:
-                with t.phase("exec_nr"):  # exchange fused into ring/kernel
+            if self.overlap:
+                with t.phase("exec_nr"):  # exchange fused into the ring
                     c4 = self._spmm_fused(b4)
                     with t.phase("spmm", fence=c4):
                         pass

@@ -1,6 +1,6 @@
 """2D (pm x pn) SpMM engine.
 
-TPU-native counterpart of ``para2d_spmm`` (``src/para2d_spmm.{h,c}``): the
+Counterpart of ``para2d_spmm`` (``src/para2d_spmm.{h,c}``): the
 planner's ``pm x pn`` grid maps onto a 2D device mesh; A row panels are
 replicated along the ``pn`` axis, B/C are row-partitioned over ``pm`` (by the
 plan's nnz-aware boundaries) and column-partitioned over ``pn``; each of the
@@ -27,19 +27,15 @@ import jax
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-import logging
 
-from ..config import SpmmConfig
+from ..config import SpmmConfig, engine_dtype
 from ..comm.exchange import build_b_exchange, exchange_b, exchange_b_ring
-from ..kernels.spmm_pallas import UnsupportedSparsity
 from ..comm.ring import build_ring_spmm, ring_spmm
-from ..kernels.dispatch import pack_with_fallback
+from ..kernels.dispatch import pack_local_kernel, resolve_auto_kernel
 from ..plan.planner2d import Plan2D, NNZ_COST_FACTOR
 from ..shard.layout import make_mesh_2d
 from ..utils.timers import Timer
 from .stats import format_stat_table
-
-logger = logging.getLogger("crp_tpu")
 
 
 class Para2dSpmm:
@@ -62,8 +58,8 @@ class Para2dSpmm:
         self.plan = plan
         self.pm, self.pn = plan.pm, plan.pn
         self.glb_n = plan.n
+        self.dtype = engine_dtype(dtype, self.config)
         self.mesh = mesh if mesh is not None else make_mesh_2d(self.pm, self.pn)
-        self.dtype = np.dtype(dtype if dtype is not None else self.config.dtype)
         self.timer = Timer()
         t0 = Timer()
         self._t_build = Timer()
@@ -101,8 +97,8 @@ class Para2dSpmm:
         self.plan = plan
         self.pm, self.pn = plan.pm, plan.pn
         self.glb_n = plan.n
+        self.dtype = engine_dtype(dtype, self.config)
         self.mesh = mesh if mesh is not None else make_mesh_2d(self.pm, self.pn)
-        self.dtype = np.dtype(dtype if dtype is not None else self.config.dtype)
         self.timer = Timer()
         t0 = Timer()
         self._t_build = Timer()
@@ -157,25 +153,15 @@ class Para2dSpmm:
             self.xplan = build_b_exchange(
                 [p_.colidx for p_ in panels], self._B_displs, reidx=reidx
             )
-        from ..kernels.dispatch import resolve_auto_kernel
-
         kind = self.config.kernel
         if kind == "auto":
-            kind = resolve_auto_kernel(
-                self.dtype, pm, overlap=bool(self.config.overlap)
-            )
+            kind = resolve_auto_kernel(self.dtype)
         self.overlap = bool(self.config.overlap)
-        self.is_dd = kind in ("dd", "dd_mxu")
-        self.is_halo = kind == "pallas_halo"
+        self.is_dd = kind == "dd"
         if self.is_dd and self.overlap:
             raise ValueError(
                 "kernel='dd' is incompatible with overlap=1: the per-shift "
                 "partial SpMM is plain fp32 and would lose the dd accuracy"
-            )
-        if self.is_halo and self.overlap:
-            raise ValueError(
-                "kernel='pallas_halo' fuses exchange and compute already; "
-                "overlap=1 has no meaning for it"
             )
         self.max_k = int(max(np.diff(self._B_displs).max(), 1))
         self._identity_exchange = False
@@ -186,53 +172,11 @@ class Para2dSpmm:
                 a, NamedSharding(self.mesh, P("pm", *([None] * (a.ndim - 1))))
             )
 
-        if self.is_halo:
-            from ..kernels.spmm_halo import align_displs, build_halo_plan
-
-            # the fused kernel owns the B row partition: TK-aligned
-            self._halo_B_rowptr = align_displs(
-                self._B_displs, int(self._B_displs[-1])
-            )
-            try:
-                with self._t_build.phase("pack"):
-                    self.hplan = build_halo_plan(
-                        panels, self._halo_B_rowptr, dtype=self.dtype
-                    )
-            except UnsupportedSparsity as e:
-                logger.warning(
-                    "pallas_halo unavailable (%s); falling back to the "
-                    "unfused pallas path", e,
-                )
-                self.is_halo = False
-                kind = "pallas"
-        if self.is_halo:
-            hp = self.hplan
-            self.max_k = hp.max_k
-            self.max_m = max(self.max_m, hp.G * hp.TM)
-            self._halo_arrays = (
-                hp.ws_rel, hp.push_src, hp.push_dev, hp.push_dst,
-                hp.npush, hp.exp_from, hp.wait_bound,
-            )
-            with self._t_build.phase("upload"):
-                self.d_halo = tuple(put_pm(x) for x in self._halo_arrays)
-                self.d_panels = put_pm(hp.a_panels)
-                self.d_panels.block_until_ready()
-            self._tn = 128
-            nloc = int(max(np.diff(plan.BC_colptr).max(), 1))
-            self._nloc_pad = -(-nloc // self._tn) * self._tn
-            self.d_buf = jax.device_put(
-                np.zeros(
-                    (self.pm, self.pn, hp.buf_rows, self._nloc_pad),
-                    self.dtype,
-                ),
-                NamedSharding(self.mesh, P("pm", "pn", None, None)),
-            )
-        elif self.overlap:
+        if self.overlap:
             with self._t_build.phase("pack"):
                 self.ring = build_ring_spmm(
                     panels, self.xplan, self._B_displs, self.max_m,
                     self.dtype, kind,
-                    mxu_precision=self.config.mxu_precision,
                 )
             self.d_kernel = tuple(put_pm(a) for a in self.ring.self_arrays)
             self._kernel_specs = tuple(
@@ -244,8 +188,6 @@ class Para2dSpmm:
                 (self.ring.step_rows, self.ring.step_cols, self.ring.step_vals)
             )
             self.d_send_idx = put_pm(self.xplan.send_idx)
-            # the self-part pallas kernel DMAs windows out of b_loc directly
-            self.max_k = max(self.max_k, self.ring.min_b_rows)
         else:
             shards_compact = []
             for i, s in enumerate(panels):
@@ -256,20 +198,11 @@ class Para2dSpmm:
                 else:
                     cc = (s.colidx - int(self.xplan.rowmap[i])).astype(np.int32)
                 shards_compact.append((s.rowptr, cc, s.val))
-            # structure-aware fallback walk (gather on fp32 TPU, then
-            # segsum; dd keeps its accuracy contract) lives in dispatch
             with self._t_build.phase("pack"):
-                arrays, self._local_fn, kind = pack_with_fallback(
+                arrays, self._local_fn = pack_local_kernel(
                     shards_compact, self.max_m, self.dtype, kind,
-                    mxu_precision=self.config.mxu_precision,
-                    is_dd=self.is_dd,
                 )
-            # the pallas windowed kernel needs rB padded so window DMAs stay
-            # in-bounds; extra rows only ever meet zero A-tile columns
-            self._rb_rows = max(
-                self.xplan.rB_nrow_max,
-                getattr(self._local_fn, "min_b_rows", 1), 1,
-            )
+            self._rb_rows = max(self.xplan.rB_nrow_max, 1)
             with self._t_build.phase("upload"):
                 self.d_kernel = tuple(put_pm(a) for a in arrays)
                 for x in self.d_kernel:
@@ -289,8 +222,8 @@ class Para2dSpmm:
                 self.d_recv_dst = put_pm(self.xplan.recv_dst)
                 self.d_self_src = put_pm(self.xplan.self_src)
                 self.d_self_dst = put_pm(self.xplan.self_dst)
-        # resolved kernel after auto-selection and sparsity fallbacks
-        self.kernel_kind = "pallas_halo" if self.is_halo else kind
+        # resolved kernel after auto-selection
+        self.kernel_kind = kind
         self.max_nloc = int(max(np.diff(plan.BC_colptr).max(), 1))
         self.b_sharding = NamedSharding(self.mesh, P("pm", "pn", None, None))
         self._exec_jit = self._make_exec()
@@ -304,38 +237,6 @@ class Para2dSpmm:
     def _make_exec(self):
         pmspec = P("pm", None)
         bspec = P("pm", "pn", None, None)
-
-        if self.is_halo:
-            from ..kernels.spmm_halo import (
-                halo_spmm_local, resolve_halo_precision,
-            )
-
-            hp = self.hplan
-            interpret = jax.default_backend() != "tpu"
-            kw = dict(
-                p=self.pm, pn_size=self.pn, TM=hp.TM, G=hp.G, W=hp.W,
-                Wc=hp.Wc, C_panel=hp.C_panel, TN=self._tn,
-                interpret=interpret,
-                precision=resolve_halo_precision(self.config.mxu_precision),
-            )
-
-            def local(*args):
-                plan_arrays = tuple(x[0] for x in args[:7])
-                panels, b_loc, buf = args[7][0], args[8][0, 0], args[9][0, 0]
-                out, buf2 = halo_spmm_local(
-                    (plan_arrays[0], panels) + plan_arrays[1:],
-                    b_loc, buf, **kw,
-                )
-                return out[None, None].astype(b_loc.dtype), buf2[None, None]
-
-            in_specs = tuple(
-                P("pm", *([None] * (x.ndim - 1))) for x in self._halo_arrays
-            ) + (P("pm", None, None, None), bspec, bspec)
-            fn = jax.shard_map(
-                local, mesh=self.mesh, in_specs=in_specs,
-                out_specs=(bspec, bspec), check_vma=False,
-            )
-            return jax.jit(fn, donate_argnums=(9,))
 
         nk = len(self.d_kernel)
 
@@ -404,19 +305,14 @@ class Para2dSpmm:
         so the kernel's midpoint split stays aligned for narrow blocks.
         """
         plan = self.plan
-        if self.is_dd:
-            w = 2 * self.max_nloc
-        elif self.is_halo:
-            w = self._nloc_pad
-        else:
-            w = self.max_nloc
+        w = 2 * self.max_nloc if self.is_dd else self.max_nloc
         dt = np.float32 if self.is_dd else self.dtype
         out = np.zeros((self.pm, self.pn, self.max_k, w), dtype=dt)
         if self.is_dd:
             from ..kernels.spmm_dd import split_f64
 
             bhi, blo = split_f64(np.asarray(b, dtype=np.float64))
-        row_displs = self._halo_B_rowptr if self.is_halo else self._B_displs
+        row_displs = self._B_displs
         for i in range(self.pm):
             r0, r1 = int(row_displs[i]), int(row_displs[i + 1])
             for j in range(self.pn):
@@ -453,11 +349,6 @@ class Para2dSpmm:
         return out
 
     def exec_device(self, b_shards: jax.Array) -> jax.Array:
-        if self.is_halo:
-            out, self.d_buf = self._exec_jit(
-                *self.d_halo, self.d_panels, b_shards, self.d_buf
-            )
-            return out
         if self._identity_exchange:
             return self._exec_jit(*self.d_kernel, b_shards)
         if self.overlap:

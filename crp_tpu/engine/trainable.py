@@ -30,10 +30,7 @@ Only the ``segsum`` kernel form is supported: it is the one whose packed
 representation keeps one value SLOT per nonzero (``pack_device_csr``),
 making value substitution a pure array swap — the engine's jitted exec
 already takes the packed arrays as arguments, so no engine surgery is
-needed.  The MXU panel kernels bake values into dense panels at pack
-time; a value-parameterized panel path would re-densify per step, which
-is the wrong tradeoff at training scale (small n => the segsum gather is
-not the bottleneck; see docs/PARITY.md on the Fig. 7 small-n regime).
+needed.
 
 Layout: slot q of shard i is global nonzero ``a.rowptr[displs[i]] + q``
 (``CSRMatrix.row_slice`` keeps CSR order and the nnz-balanced row blocks

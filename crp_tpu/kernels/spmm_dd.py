@@ -1,7 +1,8 @@
 """Local SpMM in double-float ("double-double" fp32) precision.
 
-TPUs have no native fp64 (SURVEY.md section 7 "hard parts: fp64 parity");
-the reference computes in fp64 (``mkl_sparse_d_mm``, ``src/rowpara_spmm.c:
+For hardware without fp64 units (SURVEY.md section 7 "hard parts: fp64
+parity"; the GPU computes fp64 natively and never needs this kernel): the
+reference computes in fp64 (``mkl_sparse_d_mm``, ``src/rowpara_spmm.c:
 398-407``) and its acceptance check is ``<= 1e-12`` Frobenius.  This kernel
 reaches fp64-class accuracy on fp32 hardware by representing every value as
 an unevaluated pair ``hi + lo`` of fp32 (~2^-48 unit roundoff) and using
@@ -135,7 +136,7 @@ def spmm_ell_dd(
     docstring).  Pad slots carry col = 0, val = 0, whose dd product and
     adds are exactly zero, so padding L to a power of two is error-free.
     Peak intermediate is (m, L, n) fp32 x2 — fine for the fp64-parity
-    path this kernel serves; the bandwidth-bound perf path is ``pallas``.
+    path this kernel serves.
     """
     n = b_packed.shape[1] // 2
     m, L = cols.shape

@@ -3,13 +3,12 @@
 Second portable kernel flavour: the shard's CSR is padded row-wise to ELL
 (fixed L slots per row) at plan time; the kernel scans over slots, each step
 doing one B-row gather of shape (m, n) and a fused multiply-accumulate.
-Peak memory stays O(m*n) (the segment-sum path materializes an (nnz, n)
-gather, which does not fit HBM at pwtk scale), and the access pattern is a
-row-gather of contiguous n-element lines — bandwidth-friendly on TPU.
+Peak memory stays O(m*n), and the access pattern is a row-gather of
+contiguous n-element lines.
 
 Best for matrices with bounded nnz/row (FEM/banded); power-law hub rows blow
-up L — the engines keep the segment-sum path as default and the Pallas MXU
-kernel replaces both on TPU for the serious numbers.
+up L — the engines keep the segment-sum path as the portable default and
+run the Pallas CSR kernel (``spmm_triton.py``) on a GPU.
 """
 
 from __future__ import annotations

@@ -3,8 +3,9 @@
 This is the baseline local kernel replacing the reference's
 ``mkl_sparse_d_mm`` call (``src/rowpara_spmm.c:398-407``): a gather of B rows
 by column index followed by a sorted segment-sum over rows.  It runs on every
-backend (CPU fp64 for the <=1e-12 acceptance tests, TPU fp32/bf16) and is the
-correctness reference for the Pallas MXU kernel (``spmm_pallas.py``).
+backend (CPU fp64 for the <=1e-12 acceptance tests, GPU fp32/fp64).  XLA on
+the GPU fuses the gather and the multiply into one sorted scatter-add: the
+``(nnz, n)`` gather is never written to device memory.
 
 Shape discipline for XLA: nnz is padded to a static size at plan time; padded
 entries carry ``row_id = nrow`` (out-of-range -> dropped by the scatter-add)

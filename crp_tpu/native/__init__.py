@@ -59,14 +59,9 @@ def _load():
     p_i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
     p_i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
     p_f64 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
-    p_f32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
 
     lib.crp_comm_size.argtypes = [i64, i64, p_i64, p_i32, p_i64, p_i64]
     lib.crp_coo2csr.argtypes = [i64, i64, p_i64, p_i64, p_f64, p_i64, p_i32, p_f64]
-    lib.crp_pack_window_flat_f32.restype = i64
-    lib.crp_pack_window_flat_f32.argtypes = [
-        i64, p_i64, p_i32, p_f32, i64, i64, i64, i64, i64, p_i32, p_f32,
-    ]
     lib.crp_mtx_stat.restype = ctypes.c_int
     lib.crp_mtx_stat.argtypes = [ctypes.c_char_p] + [ctypes.POINTER(i64)] * 3 + [
         ctypes.POINTER(ctypes.c_int)
@@ -78,44 +73,6 @@ def _load():
     lib.crp_ggp_partition.restype = ctypes.c_int
     lib.crp_ggp_partition.argtypes = [
         i64, p_i64, p_i32, i64, ctypes.c_double, p_i32,
-    ]
-    p_u16 = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
-    lib.crp_dd_slice_f64.restype = ctypes.c_int
-    lib.crp_dd_slice_f64.argtypes = [
-        i64, i64, i64, i64, p_f64, p_f32,
-        np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS"),
-    ]
-    lib.crp_parallel_memcpy.argtypes = [
-        i64,
-        np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
-        np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
-    ]
-    lib.crp_bf16_cast.argtypes = [i64, p_f32, p_u16]
-    lib.crp_bf16_split.argtypes = [i64, p_f32, p_u16, p_u16]
-    lib.crp_ragged_cover.restype = i64
-    lib.crp_ragged_cover.argtypes = [
-        i64, p_i64, p_i32, i64, i64, i64, i64, i64, i64, p_i32, p_i64,
-        ctypes.POINTER(i64),
-    ]
-    lib.crp_ragged_fill_f32.restype = i64
-    lib.crp_ragged_fill_f32.argtypes = [
-        i64, p_i64, p_i32, p_f32, i64, i64, i64, i64, p_i32, p_i64,
-        p_f32, p_i32, p_i32, p_f32,
-    ]
-    lib.crp_ragged_fill_f64.restype = i64
-    lib.crp_ragged_fill_f64.argtypes = [
-        i64, p_i64, p_i32, p_f64, i64, i64, i64, i64, p_i32, p_i64,
-        p_f64, p_i32, p_i32, p_f64,
-    ]
-    lib.crp_ragged_fill_bf16.restype = i64
-    lib.crp_ragged_fill_bf16.argtypes = [
-        i64, p_i64, p_i32, p_f32, i64, i64, i64, i64, p_i32, p_i64,
-        ctypes.c_int, p_u16, p_u16, p_i32, p_i32, p_f32,
-    ]
-    lib.crp_pack_window_flat_bf16.restype = i64
-    lib.crp_pack_window_flat_bf16.argtypes = [
-        i64, p_i64, p_i32, p_f32, i64, i64, i64, i64, i64,
-        ctypes.c_int, p_i32, p_u16, p_u16,
     ]
     _lib = lib
     AVAILABLE = True
@@ -156,272 +113,6 @@ def coo2csr(nrow, ncol, rows, cols, vals):
         rowptr, colidx, csrval,
     )
     return rowptr, colidx, csrval
-
-
-def pack_window_flat_f32(nrow, rowptr, colidx, val, TM, TK, max_window, G, W):
-    """Native flat-panel densification into (G, TM, W); returns
-    (ws, panels, W0) or None."""
-    lib = _load()
-    if lib is None:
-        return None
-    ws = np.zeros(G, dtype=np.int32)
-    panels = np.zeros((G, TM, W), dtype=np.float32)
-    w0 = lib.crp_pack_window_flat_f32(
-        int(nrow),
-        np.ascontiguousarray(rowptr, dtype=np.int64),
-        np.ascontiguousarray(colidx, dtype=np.int32),
-        np.ascontiguousarray(val, dtype=np.float32),
-        int(TM), int(TK), int(max_window), int(G), int(W), ws, panels,
-    )
-    if w0 < 0:
-        return None
-    return ws, panels, int(w0)
-
-
-class DDSliceRangeError(ValueError):
-    """A row's pow2 scale mu is not representable as a NORMAL fp32 (the
-    fp64 amax lies above 2^127 or below 2^-126); the Ozaki exact-slicing
-    invariant would silently break.  Callers map this to
-    ``UnsupportedSparsity`` so the engines fall back to the VPU dd path."""
-
-
-def dd_slice_f64(panels, nslice):
-    """Native Ozaki slicing: (S, TM, Wc) fp64 panels -> (mu (S, TM) fp32,
-    slices (nslice, S, TM, Wc) bf16); returns None to fall back.  Raises
-    DDSliceRangeError when a row scale exceeds the fp32 normal range."""
-    lib = _load()
-    if lib is None:
-        return None
-    import ml_dtypes
-
-    S, TM, Wc = panels.shape
-    mu = np.empty((S, TM), np.float32)
-    slices = np.empty((nslice, S, TM, Wc), np.uint16)
-    rc = lib.crp_dd_slice_f64(
-        S, TM, Wc, nslice,
-        np.ascontiguousarray(panels, dtype=np.float64), mu, slices,
-    )
-    if rc == -2:
-        raise DDSliceRangeError(
-            "dd_mxu row scale outside fp32 normal range (amax > 2^127 "
-            "or < 2^-126)"
-        )
-    if rc != 0:
-        return None
-    return mu, slices.view(ml_dtypes.bfloat16)
-
-
-def parallel_copy(dst, src) -> bool:
-    """Threaded flat copy into a preallocated array (same dtype/size, both
-    C-contiguous); returns False when the native path can't serve it and
-    the caller must fall back to numpy assignment."""
-    lib = _load()
-    if (
-        lib is None
-        or dst.dtype != src.dtype
-        or dst.size != src.size
-        or not dst.flags.c_contiguous
-        or not src.flags.c_contiguous
-    ):
-        return False
-    nbytes = dst.size * dst.itemsize
-    lib.crp_parallel_memcpy(
-        nbytes,
-        src.reshape(-1).view(np.uint8),
-        dst.reshape(-1).view(np.uint8),
-    )
-    return True
-
-
-def bf16_cast(x):
-    """Native multithreaded fp32 -> bf16 (RNE); returns bf16 array or None."""
-    lib = _load()
-    if lib is None:
-        return None
-    import ml_dtypes
-
-    x = np.ascontiguousarray(x, dtype=np.float32)
-    out = np.empty(x.shape, dtype=np.uint16)
-    lib.crp_bf16_cast(x.size, x.reshape(-1), out.reshape(-1))
-    return out.view(ml_dtypes.bfloat16)
-
-
-def bf16_split(x):
-    """Native multithreaded bf16 hi/lo split; returns (ah, al) or None."""
-    lib = _load()
-    if lib is None:
-        return None
-    import ml_dtypes
-
-    x = np.ascontiguousarray(x, dtype=np.float32)
-    ah = np.empty(x.shape, dtype=np.uint16)
-    al = np.empty(x.shape, dtype=np.uint16)
-    lib.crp_bf16_split(x.size, x.reshape(-1), ah.reshape(-1), al.reshape(-1))
-    return ah.view(ml_dtypes.bfloat16), al.view(ml_dtypes.bfloat16)
-
-
-def ragged_cover(rowptr, colidx, TM, TK, Wc, min_chunk_nnz, G):
-    """Native ragged interval cover; returns (starts, group_ptr, spill_nnz)
-    or None."""
-    lib = _load()
-    if lib is None:
-        return None
-    nrow = len(rowptr) - 1
-    nnz = int(rowptr[-1]) - int(rowptr[0])
-    cap = nnz // max(int(min_chunk_nnz), 1) + int(G) + 1
-    starts = np.zeros(cap, dtype=np.int32)
-    group_ptr = np.zeros(int(G) + 1, dtype=np.int64)
-    spill = ctypes.c_int64()
-    S = lib.crp_ragged_cover(
-        int(nrow),
-        np.ascontiguousarray(rowptr, dtype=np.int64),
-        np.ascontiguousarray(colidx, dtype=np.int32),
-        int(TM), int(TK), int(Wc), int(min_chunk_nnz), int(G),
-        cap, starts, group_ptr, ctypes.byref(spill),
-    )
-    if S < 0:
-        return None
-    return starts[:S].copy(), group_ptr, int(spill.value)
-
-
-def ragged_fill_f32(rowptr, colidx, val, TM, TK, Wc, G, starts, group_ptr,
-                    spill_nnz):
-    """Native ragged densify; returns (panels, sp_rows, sp_cols, sp_vals)
-    or None."""
-    lib = _load()
-    if lib is None:
-        return None
-    nrow = len(rowptr) - 1
-    S = len(starts)
-    panels = np.zeros((S, int(TM), int(Wc)), dtype=np.float32)
-    sp_rows = np.zeros(max(spill_nnz, 1), dtype=np.int32)
-    sp_cols = np.zeros(max(spill_nnz, 1), dtype=np.int32)
-    sp_vals = np.zeros(max(spill_nnz, 1), dtype=np.float32)
-    got = lib.crp_ragged_fill_f32(
-        int(nrow),
-        np.ascontiguousarray(rowptr, dtype=np.int64),
-        np.ascontiguousarray(colidx, dtype=np.int32),
-        np.ascontiguousarray(val, dtype=np.float32),
-        int(TM), int(TK), int(Wc), int(G),
-        np.ascontiguousarray(starts, dtype=np.int32),
-        np.ascontiguousarray(group_ptr, dtype=np.int64),
-        panels, sp_rows, sp_cols, sp_vals,
-    )
-    # the cover's spill count is an upper bound: nnz of dropped chunks that
-    # fall inside another kept/dummy chunk's range are absorbed into panels
-    if got < 0 or got > spill_nnz:
-        logger.warning(
-            "native ragged fill spill out of range (%d / cap %d); "
-            "using numpy", got, spill_nnz,
-        )
-        return None
-    return panels, sp_rows[:got], sp_cols[:got], sp_vals[:got]
-
-
-def ragged_fill_f64(rowptr, colidx, val, TM, TK, Wc, G, starts, group_ptr,
-                    spill_nnz):
-    """Native ragged densify in fp64 (the dd kernels' pack path); returns
-    (panels, sp_rows, sp_cols, sp_vals) or None."""
-    lib = _load()
-    if lib is None:
-        return None
-    nrow = len(rowptr) - 1
-    S = len(starts)
-    panels = np.zeros((S, int(TM), int(Wc)), dtype=np.float64)
-    sp_rows = np.zeros(max(spill_nnz, 1), dtype=np.int32)
-    sp_cols = np.zeros(max(spill_nnz, 1), dtype=np.int32)
-    sp_vals = np.zeros(max(spill_nnz, 1), dtype=np.float64)
-    got = lib.crp_ragged_fill_f64(
-        int(nrow),
-        np.ascontiguousarray(rowptr, dtype=np.int64),
-        np.ascontiguousarray(colidx, dtype=np.int32),
-        np.ascontiguousarray(val, dtype=np.float64),
-        int(TM), int(TK), int(Wc), int(G),
-        np.ascontiguousarray(starts, dtype=np.int32),
-        np.ascontiguousarray(group_ptr, dtype=np.int64),
-        panels, sp_rows, sp_cols, sp_vals,
-    )
-    if got < 0 or got > spill_nnz:  # see ragged_fill_f32 on the bound
-        logger.warning(
-            "native ragged f64 fill spill out of range (%d / cap %d); "
-            "using numpy", got, spill_nnz,
-        )
-        return None
-    return panels, sp_rows[:got], sp_cols[:got], sp_vals[:got]
-
-
-def ragged_fill_bf16(rowptr, colidx, val, TM, TK, Wc, G, starts, group_ptr,
-                     spill_nnz, split):
-    """Native ragged densify straight to bf16 (split=False) or a bf16
-    hi/lo pair (split=True) — skips the fp32 panel intermediate, halving
-    the fresh-page traffic of engine init.  Returns (ah, al_or_None,
-    sp_rows, sp_cols, sp_vals) or None."""
-    lib = _load()
-    if lib is None:
-        return None
-    import ml_dtypes
-
-    nrow = len(rowptr) - 1
-    S = len(starts)
-    # zeros (calloc), not empty: the native fill writes only nonzero
-    # elements so untouched pages never write-fault
-    ah = np.zeros((S, int(TM), int(Wc)), dtype=np.uint16)
-    al = np.zeros((S, int(TM), int(Wc)) if split else (1,), dtype=np.uint16)
-    sp_rows = np.zeros(max(spill_nnz, 1), dtype=np.int32)
-    sp_cols = np.zeros(max(spill_nnz, 1), dtype=np.int32)
-    sp_vals = np.zeros(max(spill_nnz, 1), dtype=np.float32)
-    got = lib.crp_ragged_fill_bf16(
-        int(nrow),
-        np.ascontiguousarray(rowptr, dtype=np.int64),
-        np.ascontiguousarray(colidx, dtype=np.int32),
-        np.ascontiguousarray(val, dtype=np.float32),
-        int(TM), int(TK), int(Wc), int(G),
-        np.ascontiguousarray(starts, dtype=np.int32),
-        np.ascontiguousarray(group_ptr, dtype=np.int64),
-        int(bool(split)), ah, al, sp_rows, sp_cols, sp_vals,
-    )
-    if got < 0 or got > spill_nnz:  # see ragged_fill_f32 on the bound
-        logger.warning(
-            "native ragged bf16 fill spill out of range (%d / cap %d); "
-            "using numpy", got, spill_nnz,
-        )
-        return None
-    return (
-        ah.view(ml_dtypes.bfloat16),
-        al.view(ml_dtypes.bfloat16) if split else None,
-        sp_rows[:got], sp_cols[:got], sp_vals[:got],
-    )
-
-
-def pack_window_flat_bf16(nrow, rowptr, colidx, val, TM, TK, max_window,
-                          G, W, split):
-    """Native uniform-window densify straight to bf16 / bf16-pair (see
-    ragged_fill_bf16); returns (ws, ah, al_or_None, W0) or None."""
-    lib = _load()
-    if lib is None:
-        return None
-    import ml_dtypes
-
-    ws = np.zeros(G, dtype=np.int32)
-    # zeros (calloc), not empty — see ragged_fill_bf16
-    ah = np.zeros((G, int(TM), int(W)), dtype=np.uint16)
-    al = np.zeros((G, int(TM), int(W)) if split else (1,), dtype=np.uint16)
-    w0 = lib.crp_pack_window_flat_bf16(
-        int(nrow),
-        np.ascontiguousarray(rowptr, dtype=np.int64),
-        np.ascontiguousarray(colidx, dtype=np.int32),
-        np.ascontiguousarray(val, dtype=np.float32),
-        int(TM), int(TK), int(max_window), int(G), int(W),
-        int(bool(split)), ws, ah, al,
-    )
-    if w0 < 0:
-        return None
-    return (
-        ws,
-        ah.view(ml_dtypes.bfloat16),
-        al.view(ml_dtypes.bfloat16) if split else None,
-        int(w0),
-    )
 
 
 def ggp_partition(rowptr, colidx, nparts, imbalance=1.05):

@@ -1,14 +1,13 @@
 // Native host-side hot paths for crp_tpu, loaded via ctypes.
 //
 // The reference keeps its planner and I/O in C for speed (src/spmat_part.c,
-// examples/mmio_utils.c); these are the TPU framework's equivalents — the
+// examples/mmio_utils.c); these are this library's equivalents — the
 // pieces that stay on the host CPU and dominate plan/init time at
 // 100M-nnz scale:
 //   * crp_comm_size        — exact per-block SpMV comm volume (the planner's
 //                            hot loop, algorithmically matching
 //                            csr_mat_row_part_comm_size semantics)
 //   * crp_coo2csr_*        — COO -> column-sorted CSR
-//   * crp_pack_window_*    — densify window tiles for the Pallas kernel
 //   * crp_mtx_read         — buffered Matrix Market coordinate parser with
 //                            symmetric mirror expansion
 //
@@ -92,413 +91,6 @@ void crp_coo2csr(
     int64_t* rowptr, int32_t* colidx, double* csrval)
 {
     coo2csr_impl(nrow, nnz, rows, cols, vals, rowptr, colidx, csrval);
-}
-
-// Flat-panel densification for the chunked Pallas kernel: panels[G*TM*W]
-// (zero-initialized by the caller, W possibly chunk-padded past the raw
-// window width).  Returns the raw window width W0 (rows), or -1 if it
-// would exceed max_window.
-int64_t crp_pack_window_flat_f32(
-    int64_t nrow, const int64_t* rowptr, const int32_t* colidx,
-    const float* val, int64_t TM, int64_t TK, int64_t max_window,
-    int64_t G, int64_t W, int32_t* ws, float* panels)
-{
-    std::vector<int64_t> min_t(G), max_t(G);
-    for (int64_t g = 0; g < G; g++) {
-        int64_t r0 = g * TM, r1 = std::min(nrow, (g + 1) * TM);
-        int64_t mn = INT64_MAX, mx = 0;
-        for (int64_t j = rowptr[r0]; j < rowptr[r1]; j++) {
-            int64_t t = colidx[j] / TK;
-            if (t < mn) mn = t;
-            if (t > mx) mx = t;
-        }
-        if (mn > mx) mn = mx;
-        min_t[g] = mn; max_t[g] = mx;
-    }
-    int64_t T = 1;
-    for (int64_t g = 0; g < G; g++) T = std::max(T, max_t[g] - min_t[g] + 1);
-    int64_t W0 = T * TK;
-    if (W0 > max_window || W0 > W) return -1;
-#pragma omp parallel for schedule(dynamic)
-    for (int64_t g = 0; g < G; g++) {
-        ws[g] = (int32_t)(min_t[g] * TK);
-        int64_t r0 = g * TM, r1 = std::min(nrow, (g + 1) * TM);
-        int64_t base_col = min_t[g] * TK;
-        float* base = panels + g * TM * W;
-        for (int64_t r = r0; r < r1; r++) {
-            float* prow = base + (r - r0) * W;
-            for (int64_t j = rowptr[r]; j < rowptr[r + 1]; j++)
-                prow[colidx[j] - base_col] += val[j];
-        }
-    }
-    return W0;
-}
-
-// Ragged gathered-window cover (kernels/spmm_ragged.py): greedy fixed-width
-// TK-aligned interval cover of each TM-row group's nonzero columns; chunks
-// with fewer than min_chunk_nnz nonzeros are dropped (their nnz spill to
-// the VPU path).  Every group keeps >= 1 chunk (an all-zero dummy when
-// everything spilled) so its output block is always initialized.
-// Returns total kept chunks S (group_ptr gets G+1 entries, starts gets S)
-// or -1 when starts_cap is too small.
-int64_t crp_ragged_cover(
-    int64_t nrow, const int64_t* rowptr, const int32_t* colidx,
-    int64_t TM, int64_t TKr, int64_t Wc, int64_t min_chunk_nnz, int64_t G,
-    int64_t starts_cap, int32_t* starts, int64_t* group_ptr,
-    int64_t* spill_nnz_out)
-{
-    std::vector<std::vector<int32_t>> kept((size_t)G);
-    std::vector<int64_t> spills((size_t)G, 0);
-#pragma omp parallel for schedule(dynamic)
-    for (int64_t g = 0; g < G; g++) {
-        int64_t r0 = std::min(g * TM, nrow), r1 = std::min((g + 1) * TM, nrow);
-        int64_t j0 = rowptr[r0], j1 = rowptr[r1];
-        if (j1 <= j0) { kept[g].push_back(0); continue; }
-        // sorted WITH duplicates: cover starts are unchanged and chunk nnz
-        // counts fall out of the walk directly
-        std::vector<int32_t> cols(colidx + j0, colidx + j1);
-        std::sort(cols.begin(), cols.end());
-        size_t i = 0;
-        while (i < cols.size()) {
-            int32_t s = (cols[i] / (int32_t)TKr) * (int32_t)TKr;
-            size_t e = i;
-            while (e < cols.size() && (int64_t)cols[e] < (int64_t)s + Wc) e++;
-            if ((int64_t)(e - i) >= min_chunk_nnz) kept[g].push_back(s);
-            else spills[g] += (int64_t)(e - i);
-            i = e;
-        }
-        if (kept[g].empty()) kept[g].push_back(0);
-    }
-    int64_t S = 0, spill = 0;
-    group_ptr[0] = 0;
-    for (int64_t g = 0; g < G; g++) {
-        S += (int64_t)kept[g].size();
-        spill += spills[g];
-        group_ptr[g + 1] = S;
-    }
-    if (S > starts_cap) return -1;
-    for (int64_t g = 0; g < G; g++)
-        std::copy(kept[g].begin(), kept[g].end(), starts + group_ptr[g]);
-    *spill_nnz_out = spill;
-    return S;
-}
-
-// Fill phase for the ragged cover: densify kept-chunk nnz into
-// panels[S*TM*Wc] (zero-initialized by the caller) and write spilled nnz
-// as COO (rows relative to the shard, capacity = cover's spill count).
-// Returns the spilled count.
-}  // extern "C" — template below, C entry points reopen after
-
-// RNE bf16 hi/lo split shared by crp_bf16_split and the direct-pack
-// conversion loops — bit-parity of the pack paths with np_split_bf16
-// depends on every user going through this one definition.
-static inline void split_bf16_one(float x, uint16_t* hi, uint16_t* lo);
-
-static inline uint16_t f32_to_bf16(float f)
-{
-    uint32_t u;
-    std::memcpy(&u, &f, 4);
-    if ((u & 0x7F800000u) == 0x7F800000u && (u & 0x7FFFFFu))
-        return (uint16_t)((u >> 16) | 0x0040u);  // NaN stays NaN (quiet)
-    return (uint16_t)((u + 0x7FFFu + ((u >> 16) & 1u)) >> 16);
-}
-
-static inline void split_bf16_one(float x, uint16_t* hi, uint16_t* lo)
-{
-    uint32_t u;
-    std::memcpy(&u, &x, 4);
-    uint32_t rr = (u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u;
-    *hi = (uint16_t)(rr >> 16);
-    float h;
-    std::memcpy(&h, &rr, 4);
-    *lo = f32_to_bf16(x - h);
-}
-
-// Shared ragged-fill skeleton: spill counting pass, then per-group
-// scatter.  Output modes: direct T panels (mode 0), or bf16 single /
-// hi-lo pair (modes 1 / 2) converted from a per-group fp32 staging
-// buffer — the staging keeps the multi-GB output arrays single-pass
-// (each fresh page is written exactly once; this VM's first-touch
-// fault path runs ~100 MB/s, so every extra pass over fresh pages
-// costs ~10 s/GB).
-
-template <typename T>
-static int64_t ragged_fill_impl(
-    int64_t nrow, const int64_t* rowptr, const int32_t* colidx,
-    const T* val, int64_t TM, int64_t Wc, int64_t G,
-    const int32_t* starts, const int64_t* group_ptr, int mode,
-    T* panels, uint16_t* ah, uint16_t* al,
-    int32_t* sp_rows, int32_t* sp_cols, T* sp_vals)
-{
-    std::vector<int64_t> sp_off((size_t)G + 1, 0);
-#pragma omp parallel for schedule(dynamic)
-    for (int64_t g = 0; g < G; g++) {
-        int64_t r0 = std::min(g * TM, nrow), r1 = std::min((g + 1) * TM, nrow);
-        const int32_t* c0 = starts + group_ptr[g];
-        const int32_t* c1 = starts + group_ptr[g + 1];
-        int64_t cnt = 0;
-        for (int64_t j = rowptr[r0]; j < rowptr[r1]; j++) {
-            int32_t col = colidx[j];
-            const int32_t* it = std::upper_bound(c0, c1, col);
-            if (it == c0 || (int64_t)col >= (int64_t)*(it - 1) + Wc) cnt++;
-        }
-        sp_off[g + 1] = cnt;
-    }
-    for (int64_t g = 0; g < G; g++) sp_off[g + 1] += sp_off[g];
-#pragma omp parallel
-    {
-        std::vector<float> stage;  // modes 1/2: one group's chunk panels
-#pragma omp for schedule(dynamic)
-        for (int64_t g = 0; g < G; g++) {
-            int64_t r0 = std::min(g * TM, nrow);
-            int64_t r1 = std::min((g + 1) * TM, nrow);
-            const int32_t* c0 = starts + group_ptr[g];
-            const int32_t* c1 = starts + group_ptr[g + 1];
-            int64_t nch = c1 - c0;
-            float* st = nullptr;
-            if (mode != 0) {
-                size_t need = (size_t)(nch * TM * Wc);
-                if (stage.size() < need) stage.resize(need);
-                std::memset(stage.data(), 0, need * sizeof(float));
-                st = stage.data();
-            }
-            int64_t sp = sp_off[g];
-            for (int64_t r = r0; r < r1; r++) {
-                for (int64_t j = rowptr[r]; j < rowptr[r + 1]; j++) {
-                    int32_t col = colidx[j];
-                    const int32_t* it = std::upper_bound(c0, c1, col);
-                    if (it == c0 ||
-                        (int64_t)col >= (int64_t)*(it - 1) + Wc) {
-                        sp_rows[sp] = (int32_t)r;
-                        sp_cols[sp] = col;
-                        sp_vals[sp] = val[j];
-                        sp++;
-                        continue;
-                    }
-                    int64_t ch = (it - 1) - starts;  // global chunk index
-                    int64_t off =
-                        (ch * TM + (r - r0)) * Wc + (col - *(it - 1));
-                    if (mode == 0)
-                        panels[off] += val[j];
-                    else
-                        st[off - group_ptr[g] * TM * Wc] += (float)val[j];
-                }
-            }
-            if (mode != 0) {
-                int64_t base = group_ptr[g] * TM * Wc;
-                int64_t n = nch * TM * Wc;
-                // zero elements are skipped: outputs are calloc'd
-                // (np.zeros) so untouched bytes stay 0x0000 == bf16(+0),
-                // and fp32 `+=` accumulation cannot produce -0 from +0 —
-                // only nnz-bearing pages ever write-fault.
-                if (mode == 1) {
-                    for (int64_t i = 0; i < n; i++)
-                        if (st[i] != 0.0f)
-                            ah[base + i] = f32_to_bf16(st[i]);
-                } else {
-                    for (int64_t i = 0; i < n; i++) {
-                        if (st[i] != 0.0f)
-                            split_bf16_one(st[i], &ah[base + i],
-                                           &al[base + i]);
-                    }
-                }
-            }
-        }
-    }
-    return sp_off[G];
-}
-
-extern "C" {
-
-int64_t crp_ragged_fill_f32(
-    int64_t nrow, const int64_t* rowptr, const int32_t* colidx,
-    const float* val, int64_t TM, int64_t TKr, int64_t Wc, int64_t G,
-    const int32_t* starts, const int64_t* group_ptr,
-    float* panels, int32_t* sp_rows, int32_t* sp_cols, float* sp_vals)
-{
-    (void)TKr;
-    return ragged_fill_impl<float>(
-        nrow, rowptr, colidx, val, TM, Wc, G, starts, group_ptr, 0,
-        panels, nullptr, nullptr, sp_rows, sp_cols, sp_vals);
-}
-
-int64_t crp_ragged_fill_f64(
-    int64_t nrow, const int64_t* rowptr, const int32_t* colidx,
-    const double* val, int64_t TM, int64_t TKr, int64_t Wc, int64_t G,
-    const int32_t* starts, const int64_t* group_ptr,
-    double* panels, int32_t* sp_rows, int32_t* sp_cols, double* sp_vals)
-{
-    (void)TKr;
-    return ragged_fill_impl<double>(
-        nrow, rowptr, colidx, val, TM, Wc, G, starts, group_ptr, 0,
-        panels, nullptr, nullptr, sp_rows, sp_cols, sp_vals);
-}
-
-// Uniform-window densification straight to bf16 (split = 0: ah only,
-// the 1-pass operating point; split = 1: hi/lo pair, x3).  Same window
-// derivation as crp_pack_window_flat_f32; a per-group fp32 staging
-// panel accumulates duplicates before conversion.  ah/al MUST be
-// zero-initialized (np.zeros / calloc): only nonzero elements are
-// written, so untouched pages stay shared zero pages and never
-// write-fault (see ragged_fill_impl on why that matters on this VM).
-// Returns W0 or -1 (window overflow / W too small).
-int64_t crp_pack_window_flat_bf16(
-    int64_t nrow, const int64_t* rowptr, const int32_t* colidx,
-    const float* val, int64_t TM, int64_t TK, int64_t max_window,
-    int64_t G, int64_t W, int split, int32_t* ws,
-    uint16_t* ah, uint16_t* al)
-{
-    std::vector<int64_t> min_t(G), max_t(G);
-    for (int64_t g = 0; g < G; g++) {
-        int64_t r0 = std::min(nrow, g * TM), r1 = std::min(nrow, (g + 1) * TM);
-        int64_t mn = INT64_MAX, mx = 0;
-        for (int64_t j = rowptr[r0]; j < rowptr[r1]; j++) {
-            int64_t t = colidx[j] / TK;
-            if (t < mn) mn = t;
-            if (t > mx) mx = t;
-        }
-        if (mn > mx) mn = mx;
-        min_t[g] = mn; max_t[g] = mx;
-    }
-    int64_t T = 1;
-    for (int64_t g = 0; g < G; g++) T = std::max(T, max_t[g] - min_t[g] + 1);
-    int64_t W0 = T * TK;
-    if (W0 > max_window || W0 > W) return -1;
-#pragma omp parallel
-    {
-        std::vector<float> stage((size_t)(TM * W));
-#pragma omp for schedule(dynamic)
-        for (int64_t g = 0; g < G; g++) {
-            ws[g] = (int32_t)(min_t[g] * TK);
-            int64_t r0 = std::min(nrow, g * TM);
-            int64_t r1 = std::min(nrow, (g + 1) * TM);
-            int64_t base_col = min_t[g] * TK;
-            std::memset(stage.data(), 0, sizeof(float) * TM * W);
-            for (int64_t r = r0; r < r1; r++) {
-                float* prow = stage.data() + (r - r0) * W;
-                for (int64_t j = rowptr[r]; j < rowptr[r + 1]; j++)
-                    prow[colidx[j] - base_col] += val[j];
-            }
-            int64_t base = g * TM * W, n = TM * W;
-            // zero-skip: see ragged_fill_impl — outputs are calloc'd and
-            // only nnz-bearing pages write-fault
-            if (!split) {
-                for (int64_t i = 0; i < n; i++)
-                    if (stage[i] != 0.0f)
-                        ah[base + i] = f32_to_bf16(stage[i]);
-            } else {
-                for (int64_t i = 0; i < n; i++) {
-                    if (stage[i] != 0.0f)
-                        split_bf16_one(stage[i], &ah[base + i],
-                                       &al[base + i]);
-                }
-            }
-        }
-    }
-    return W0;
-}
-
-// split = 0: ah only (1-pass bf16 point); split = 1: hi/lo pair (x3).
-// ah/al MUST be zero-initialized (np.zeros / calloc): only nonzero
-// elements are written (dummy chunks write nothing).
-int64_t crp_ragged_fill_bf16(
-    int64_t nrow, const int64_t* rowptr, const int32_t* colidx,
-    const float* val, int64_t TM, int64_t TKr, int64_t Wc, int64_t G,
-    const int32_t* starts, const int64_t* group_ptr, int split,
-    uint16_t* ah, uint16_t* al,
-    int32_t* sp_rows, int32_t* sp_cols, float* sp_vals)
-{
-    (void)TKr;
-    return ragged_fill_impl<float>(
-        nrow, rowptr, colidx, val, TM, Wc, G, starts, group_ptr,
-        split ? 2 : 1, nullptr, ah, al, sp_rows, sp_cols, sp_vals);
-}
-
-// Ozaki slice extraction for the fp64-class MXU kernel
-// (kernels/spmm_dd_mxu.py slice_a_f64): per (chunk, row) pow2 scale mu
-// with |v| < 1 strict, then nslice integer planes of 7 bits each stored
-// as bf16 (exact — |u| <= 128 always fits bf16's 8-bit mantissa).  The
-// numpy/ml_dtypes equivalent walks ~7 passes over GB-scale fp64 panels
-// through this VM's unstable single-threaded memory path.
-int crp_dd_slice_f64(
-    int64_t S, int64_t TM, int64_t Wc, int64_t nslice,
-    const double* panels, float* mu, uint16_t* slices)
-{
-    if (Wc > 4096) return -1;  // residual buffer is stack-allocated
-    int64_t R = S * TM;  // independent (chunk, row) lanes
-    int bad_range = 0;   // mu must be a NORMAL fp32 (e in [-126, 127]):
-                         // 2^128 -> +inf, below 2^-126 -> flush, both
-                         // silently corrupt the exact-slicing invariant
-#pragma omp parallel for schedule(static)
-    for (int64_t r = 0; r < R; r++) {
-        const double* row = panels + r * Wc;
-        double amax = 0.0;
-        for (int64_t w = 0; w < Wc; w++) {
-            double a = std::fabs(row[w]);
-            if (a > amax) amax = a;
-        }
-        double m = 1.0;
-        if (amax > 0.0) {
-            int e;
-            std::frexp(amax, &e);     // amax < 2^e
-            if (e > 127 || e < -126) {
-#pragma omp atomic write
-                bad_range = 1;
-            }
-            m = std::ldexp(1.0, e);
-        }
-        mu[r] = (float)m;
-        double v[4096];               // Wc <= 4096 (panel width cap)
-        double inv = 1.0 / m;         // exact (pow2)
-        for (int64_t w = 0; w < Wc; w++) v[w] = row[w] * inv;
-        for (int64_t p = 0; p < nslice; p++) {
-            uint16_t* out = slices + (p * R + r) * Wc;
-            for (int64_t w = 0; w < Wc; w++) {
-                double u = std::nearbyint(v[w] * 128.0);
-                v[w] = v[w] * 128.0 - u;
-                // |u| <= 128: exact in bf16; bias trick not needed but
-                // f32 round-trip keeps the encoding identical to RNE
-                float uf = (float)u;
-                uint32_t b;
-                std::memcpy(&b, &uf, 4);
-                out[w] = (uint16_t)((b + 0x7FFFu + ((b >> 16) & 1u)) >> 16);
-            }
-        }
-    }
-    return bad_range ? -2 : 0;  // -2: row scale not fp32-representable
-}
-
-// Threaded flat memcpy: single-threaded numpy assignment measures as low
-// as ~70 MB/s on this VM while GB-scale panel stacking sits on the engine
-// init path.
-void crp_parallel_memcpy(int64_t nbytes, const char* src, char* dst)
-{
-    const int64_t chunk = 16 << 20;
-    int64_t nchunk = (nbytes + chunk - 1) / chunk;
-#pragma omp parallel for schedule(static)
-    for (int64_t i = 0; i < nchunk; i++) {
-        int64_t off = i * chunk;
-        std::memcpy(dst + off, src + off, std::min(chunk, nbytes - off));
-    }
-}
-
-// fp32 -> bf16 round-to-nearest-even (bit-exact with ml_dtypes / XLA);
-// multithreaded — the single-threaded numpy/ml_dtypes cast path measures
-// an unstable 0.05-2 GB/s on this VM while GB-scale panel splits sit on
-// the engine init path.
-// (f32_to_bf16 defined above the extern "C" block)
-
-void crp_bf16_cast(int64_t n, const float* x, uint16_t* out)
-{
-#pragma omp parallel for schedule(static)
-    for (int64_t i = 0; i < n; i++) out[i] = f32_to_bf16(x[i]);
-}
-
-// bf16 hi/lo split: ah = bf16(x), al = bf16(x - f32(ah)).
-void crp_bf16_split(int64_t n, const float* x, uint16_t* ah, uint16_t* al)
-{
-#pragma omp parallel for schedule(static)
-    for (int64_t i = 0; i < n; i++) split_bf16_one(x[i], &ah[i], &al[i]);
 }
 
 // Matrix Market coordinate parser.  Two-phase: stat then read.

@@ -13,7 +13,7 @@ assembles each row panel on every rank of its grid row
 (``crpspmm.c:559-584``).  The v2 engine replicates plan-layout A blocks the
 same way (``src/para2d_spmm.c:47-100``).
 
-TPU-native version: the nnz vectors are 1 x nnz ``BlockDist`` blocks moved
+JAX version: the nnz vectors are 1 x nnz ``BlockDist`` blocks moved
 by the generic :class:`~crp_tpu.shard.redist.RedistEngine` (one padded
 ``all_to_all``), and the panel assembly is a ``jax.lax.all_gather`` along
 the ``pn`` mesh axis inside ``shard_map``.  A never needs to exist as a

@@ -6,7 +6,7 @@ coordinates, intersects rectangles to derive send/recv pairs, and execs
 pack -> ``MPI_Neighbor_alltoallv`` -> unpack (``src/mat_redist.c:9-213,
 298-419``).
 
-TPU-native version: the planner holds all block coordinates, so the
+JAX version: the planner holds all block coordinates, so the
 rectangle intersections happen host-side at init; exec is one jitted
 shard_map — every device slices its (pair-padded) patches out of its source
 block, a single ``lax.all_to_all`` moves them, and each device blends the

@@ -6,10 +6,10 @@ MATLAB ``symrcm`` reordering as the alternative that shrinks planner windows
 (``deprecated/SC23_AD/readme.md:95-102``; SC23 Fig. 7 shows reordered cage15
 with pn halved at every n).
 
-On TPU reordering matters twice: it reduces communicated elements (as in the
-reference) *and* it shrinks the Pallas kernel's B windows (see
-``kernels.spmm_pallas``), so RCM is the default pre-pass for unstructured
-symmetric matrices.
+Reordering matters twice: it reduces communicated elements (as in the
+reference) *and* it brings the B rows a block of A rows gathers close
+together, which the local kernel's caches reward; RCM is the default
+pre-pass for unstructured symmetric matrices.
 """
 
 from __future__ import annotations
@@ -257,10 +257,9 @@ def cluster_reorder(
     The reference's METIS reorder (``examples/metis_mat_part.c:31-112``)
     sorts vertices by a FLAT k-way part id: with few parts, vertices
     *within* a part keep their original (possibly scrambled) order, so on
-    a label-permuted community graph the permuted matrix stays hostile to
-    windowed kernels (measured: GGGP-8 reorder left the scrambled-cplaw
-    bandwidth unchanged and the ragged cover still refused,
-    ``bench_results/r4_tpu_reorder.jsonl``).  Recursive bisection fixes
+    a label-permuted community graph the permuted matrix keeps its
+    scattered columns (a GGGP-8 reorder left the scrambled community
+    graph's bandwidth unchanged).  Recursive bisection fixes
     exactly that: each level splits by connectivity and the leaves are
     emitted depth-first, so strongly connected vertex sets get contiguous
     new ids at EVERY scale down to ``leaf_size`` — the nested-dissection-

@@ -1,6 +1,6 @@
 """Debug dump helpers.
 
-TPU-native counterparts of the reference's debug utilities
+Counterparts of the reference's debug utilities
 (``src/utils.c:122-163``): ``print_matrix`` pretty-prints a row-major block
 with a name banner, ``dump_binary``/``load_binary`` round-trip raw arrays to
 disk.  The binary format carries a tiny header (dtype + shape) instead of

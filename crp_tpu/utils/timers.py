@@ -2,7 +2,7 @@
 
 The reference wraps every pipeline stage in ``get_wtime_sec()`` pairs and
 accumulates per-phase times in engine structs (``src/rowpara_spmm.h:33-39``).
-On TPU, dispatch is async, so a phase timer must fence with
+Device dispatch is async, so a phase timer must fence with
 ``jax.block_until_ready`` to be meaningful; ``Timer.phase`` takes an optional
 value to fence on.
 """

@@ -1,5 +1,5 @@
-"""kernel="auto" resolution tests (the MKL/cuSPARSE seam analog,
-``src/rowpara_spmm.c:386-413``)."""
+"""kernel="auto" resolution and the backend checks in kernels/dispatch (the
+MKL/cuSPARSE seam analog, ``src/rowpara_spmm.c:386-413``)."""
 
 import jax
 import numpy as np
@@ -7,125 +7,87 @@ import pytest
 
 from crp_tpu.config import SpmmConfig
 from crp_tpu.engine.rowpara import RowParaSpmm
-from crp_tpu.kernels.dispatch import resolve_auto_kernel
+from crp_tpu.kernels import dispatch
+from crp_tpu.kernels.dispatch import pack_local_kernel, resolve_auto_kernel
 from crp_tpu.plan.partition1d import csr_row_partition
-from crp_tpu.sparse.synth import banded_random_csr, powerlaw_random_csr, fill_b
+from crp_tpu.sparse.synth import banded_random_csr, fill_b
 from crp_tpu.utils.norms import rel_fro_err
 
 
-def test_resolver_cpu_backend():
-    assert jax.default_backend() != "tpu"
-    assert resolve_auto_kernel(np.float32, 8) == "segsum"
-    assert resolve_auto_kernel(np.float64, 1) == "segsum"
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_resolver_cpu_backend(dtype, monkeypatch):
+    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
+    assert resolve_auto_kernel(dtype) == "segsum"
 
 
-def test_resolver_tpu_backend(monkeypatch):
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    # fp32 multi-shard: fused halo kernel; single shard: windowed pallas
-    assert resolve_auto_kernel(np.float32, 8) == "pallas_halo"
-    assert resolve_auto_kernel(np.float32, 1) == "pallas"
-    # overlap fuses its own schedule; halo/dd do not apply under it
-    assert resolve_auto_kernel(np.float32, 8, overlap=True) == "pallas"
-    # fp64-class accuracy on fp32 hardware: double-float kernel
-    assert resolve_auto_kernel(np.float64, 8) == "dd"
-    assert resolve_auto_kernel(np.float64, 8, overlap=True) == "segsum"
-    assert resolve_auto_kernel(np.float64, 8, allow_dd=False) == "segsum"
-    assert resolve_auto_kernel(np.float32, 8, allow_halo=False) == "pallas"
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_resolver_gpu_backend(dtype, monkeypatch):
+    """On a GPU, auto runs the per-dtype measured choice — native in
+    float64 (never the dd emulation)."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    got = resolve_auto_kernel(dtype)
+    assert got == dispatch.GPU_AUTO[np.dtype(dtype)]
+    assert got in ("segsum", "triton")
 
 
-def test_sparsity_fallback_chain(monkeypatch):
-    """Structure-aware fallback order (dispatch.sparsity_fallback_chain):
-    gather before segsum on fp32 TPU, dd keeps its accuracy contract,
-    CRP_TPU_FALLBACK overrides."""
-    from crp_tpu.kernels.dispatch import sparsity_fallback_chain
-
-    # CPU backend: land on segsum directly (gather's one-hot matmul only
-    # pays off on the MXU)
-    assert sparsity_fallback_chain("pallas", np.float32) == ["segsum"]
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert sparsity_fallback_chain("pallas", np.float32) == ["gather", "segsum"]
-    assert sparsity_fallback_chain("ragged", np.float32) == ["gather", "segsum"]
-    # gather itself failed: nothing left but segsum
-    assert sparsity_fallback_chain("gather", np.float32) == ["segsum"]
-    # gather is fp32-only
-    assert sparsity_fallback_chain("pallas", np.float64) == ["segsum"]
-    # fp64-class requests never drop to fp32 kernels
-    assert sparsity_fallback_chain("dd_mxu", np.float64, is_dd=True) == ["dd"]
-
-    monkeypatch.setenv("CRP_TPU_FALLBACK", "ell, segsum")
-    assert sparsity_fallback_chain("pallas", np.float32) == ["ell", "segsum"]
-    # the override must NOT reroute dd-class pack failures onto fp32
-    # kernels (a process-wide env for an fp32 sweep would silently break
-    # the fp64-class accuracy contract — ADVICE r4)
-    assert sparsity_fallback_chain("dd_mxu", np.float64, is_dd=True) == ["dd"]
+def test_resolver_gpu_unlisted_dtype_is_segsum(monkeypatch):
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert resolve_auto_kernel(np.float16) == "segsum"
 
 
-def test_fallback_lands_on_gather(devices8, monkeypatch):
-    """The TPU fallback chain, forced onto the CPU mesh via
-    CRP_TPU_FALLBACK: a pure-scatter matrix that both the uniform and the
-    ragged covers refuse lands on the one-hot-MXU gather kernel (exact in
-    fp32), not segsum."""
-    from crp_tpu.sparse.csr import CSRMatrix
-
-    monkeypatch.setenv("CRP_TPU_FALLBACK", "gather,segsum")
-    rng = np.random.default_rng(61)
-    nr, k = 256, 20000
-    rows = np.arange(nr, dtype=np.int64).repeat(4)
-    cols = rng.integers(0, k, size=4 * nr)
-    rnd = CSRMatrix.from_coo(nr, k, rows, cols, np.ones(len(rows)))
-    eng = _engine(rnd, 2, "pallas", devices8, rb_reidx=0, dtype="float32")
-    assert eng.kernel_kind == "gather"
-    assert getattr(eng._local_fn, "variant", None) == "gather"
-    b = np.asarray(fill_b(0, rnd.ncol, 0, 8), dtype=np.float32)
-    assert rel_fro_err(rnd.spmm_ref(b), eng.exec(b)) <= 1e-5
+def test_resolver_other_backend_is_segsum(monkeypatch):
+    monkeypatch.setattr(jax, "default_backend", lambda: "rocm")
+    assert resolve_auto_kernel(np.float32) == "segsum"
 
 
 def _engine(a, p, kernel, devices8, n=8, **cfg):
     displs = csr_row_partition(a.rowptr, p)
-    eng = RowParaSpmm(
+    return RowParaSpmm(
         a, displs, displs, n,
         mesh=jax.sharding.Mesh(np.array(devices8[:p]), ("pm",)),
         config=SpmmConfig(kernel=kernel, **cfg),
     )
-    return eng
 
 
 def test_engine_records_resolved_kind(devices8):
-    """kernel_kind reflects what actually ran: auto -> segsum on CPU,
-    explicit pallas stays pallas, unsupported sparsity falls back."""
+    """kernel_kind reflects what actually ran: auto -> segsum on the CPU,
+    an explicit kind stays itself."""
     a = banded_random_csr(400, nnz_per_row=20, bandwidth=30, seed=60)
     b = np.asarray(fill_b(0, a.ncol, 0, 8))
-    eng = _engine(a, 4, "auto", devices8)
-    assert eng.kernel_kind == "segsum"
-    assert rel_fro_err(a.spmm_ref(b), eng.exec(b)) <= 1e-12
+    for kernel, want in (("auto", "segsum"), ("ell", "ell"), ("dd", "dd")):
+        eng = _engine(a, 4, kernel, devices8)
+        assert eng.kernel_kind == want
+        assert rel_fro_err(a.spmm_ref(b), eng.exec(b)) <= 1e-12
 
-    eng_p = _engine(a, 4, "pallas", devices8)
-    assert eng_p.kernel_kind == "pallas"
-    assert rel_fro_err(a.spmm_ref(b), eng_p.exec(b)) <= 1e-12
 
-    # a row spanning a window wider than the 16384-row uniform cap now
-    # routes to the ragged gathered-window pack instead of falling back
-    from crp_tpu.sparse.csr import CSRMatrix
+def test_triton_refused_off_gpu(devices8):
+    """The GPU kernel never runs the interpreter silently: off a GPU an
+    explicit kernel='triton' is refused at pack time."""
+    assert jax.default_backend() == "cpu"
+    shard = (np.array([0, 1, 2]), np.array([0, 1], np.int32), np.ones(2))
+    with pytest.raises(ValueError, match="CUDA GPU"):
+        pack_local_kernel([shard], 2, np.float32, "triton")
+    a = banded_random_csr(100, nnz_per_row=5, bandwidth=10, seed=61)
+    with pytest.raises(ValueError, match="CUDA GPU"):
+        _engine(a, 2, "triton", devices8)
 
-    k = 20000
-    rows = np.arange(256, dtype=np.int64).repeat(2)
-    cols = np.tile(np.array([100, 200], dtype=np.int64), 256)
-    cols[:2] = [0, k - 1]  # full-width row
-    hub = CSRMatrix.from_coo(256, k, rows, cols, np.ones(512))
-    # rb_reidx=0 keeps raw column coordinates, so the window spans all of k
-    eng_f = _engine(hub, 2, "pallas", devices8, rb_reidx=0)
-    assert eng_f.kernel_kind == "pallas"
-    assert getattr(eng_f._local_fn, "variant", None) == "ragged"
-    bh = np.asarray(fill_b(0, hub.ncol, 0, 8))
-    assert rel_fro_err(hub.spmm_ref(bh), eng_f.exec(bh)) <= 1e-12
 
-    # fully unstructured scatter (every chunk under the keep threshold):
-    # the ragged cover refuses too and the engine falls back to segsum
-    rng = np.random.default_rng(61)
-    nr = 256
-    rows = np.arange(nr, dtype=np.int64).repeat(4)
-    cols = rng.integers(0, k, size=4 * nr)
-    rnd = CSRMatrix.from_coo(nr, k, rows, cols, np.ones(len(rows)))
-    eng_r = _engine(rnd, 2, "pallas", devices8, rb_reidx=0)
-    assert eng_r.kernel_kind == "segsum"
+def test_unknown_kernel_kind_rejected():
+    shard = (np.array([0, 1]), np.array([0], np.int32), np.ones(1))
+    with pytest.raises(ValueError, match="unknown local SpMM kernel"):
+        pack_local_kernel([shard], 1, np.float32, "pallas")
+
+
+def test_dispatch_is_the_only_backend_reader():
+    """The kernel choice and the interpret decision live in
+    kernels/dispatch.py alone: no other module of the package reads the
+    JAX backend."""
+    import pathlib
+
+    root = pathlib.Path(dispatch.__file__).resolve().parents[1]
+    readers = sorted(
+        str(p.relative_to(root))
+        for p in root.rglob("*.py")
+        if "default_backend" in p.read_text()
+    )
+    assert readers == ["kernels/dispatch.py"], readers

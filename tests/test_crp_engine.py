@@ -96,19 +96,6 @@ def test_crp_gather_all_to_root(devices8):
     assert "Alltoallv B necessary" in stat
 
 
-def test_crp_pallas_kernel_nonmultiple_tm(devices8):
-    """ADVICE r1 (high): kernel='pallas' returns G*TM >= max_m rows; the
-    internal-C reshape must trim to max_m (max_m=100 is not a TM=256
-    multiple)."""
-    a = banded_random_csr(400, nnz_per_row=30, bandwidth=30, seed=47)
-    n = 8
-    cfg = SpmmConfig(kernel="pallas")
-    eng = build(a, n, 4, devices8, config=cfg)
-    assert eng.max_m % 256 != 0
-    b = np.asarray(fill_b(0, a.ncol, 0, n))
-    assert rel_fro_err(a.spmm_ref(b), eng.exec(b)) <= 1e-12
-
-
 def test_crp_rb_p2p_modes_agree(devices8):
     """rb_p2p=0 (padded all_to_all) and rb_p2p=1 (ppermute ring) produce
     identical results (RP_SPMM_P2P analog honored by the v1 engine)."""
@@ -158,122 +145,39 @@ def test_crp_staged_phase_accounting(devices8):
     assert "SpMM w/o Redist" in stat
 
 
-def test_crp_overlap_pallas_kernel(devices8):
-    """Review r2: overlap=1 + kernel='pallas' crashed — the ring self
-    kernel's window reach (min_b_rows) exceeded rd_B's frozen internal
-    slab height; b_loc is now padded inside the shard_map body."""
+@pytest.mark.parametrize("kernel", ["ell", "triton"])
+def test_crp_local_kernel_nonmultiple_rows(kernel, devices8, triton_interpret):
+    """The kept local kernels return exactly max_m rows into rd_C's internal
+    layout (max_m=100 is no multiple of any tile) and match the fp64
+    reference."""
+    a = banded_random_csr(400, nnz_per_row=30, bandwidth=30, seed=47)
+    n = 8
+    eng = build(a, n, 4, devices8, config=SpmmConfig(kernel=kernel))
+    assert eng.kernel_kind == kernel
+    assert eng.max_m % 16 != 0
+    b = np.asarray(fill_b(0, a.ncol, 0, n))
+    assert rel_fro_err(a.spmm_ref(b), eng.exec(b)) <= 1e-12
+
+
+@pytest.mark.parametrize("kernel", ["ell", "triton"])
+def test_crp_overlap_local_kernels(kernel, devices8, triton_interpret):
+    """overlap=1 with the ring's self part on each kept kernel."""
     a = banded_random_csr(800, nnz_per_row=30, bandwidth=40, seed=52)
     n = 8
     eng = build(a, n, 8, devices8,
-                config=SpmmConfig(overlap=1, kernel="pallas"))
-    assert eng.overlap
+                config=SpmmConfig(overlap=1, kernel=kernel))
+    assert eng.overlap and eng.kernel_kind == kernel
     b = np.asarray(fill_b(0, a.ncol, 0, n))
     assert rel_fro_err(a.spmm_ref(b), eng.exec(b)) <= 1e-12
 
 
-def test_crp_pallas_halo(devices8):
-    """Fused halo kernel inside the any-layout engine (crpspmm.c:294-396
-    coarse geometry), including a 2D pm x pn grid where pushes address
-    pm-peers across the flattened mesh."""
-    a = banded_random_csr(3000, nnz_per_row=9, bandwidth=150, seed=47)
-    n = 48
-    for p, force_grid in ((4, None), (6, (3, 2))):
-        user_B = BlockDist.from_row_slabs(uniform_displs(a.ncol, p), n)
-        user_C = BlockDist.from_row_slabs(uniform_displs(a.nrow, p), n)
-        kw = {}
-        if force_grid is not None:
-            from crp_tpu.plan.bandwidth import calc_bandwidth_part2d
-
-            bp = calc_bandwidth_part2d(
-                p, a.nrow, n, a.ncol, a.rowptr, a.row_col_ranges_v1()
-            )
-            bp.np_row, bp.np_col = force_grid
-            kw = dict(bplan=bp, mesh=make_mesh_2d(*force_grid,
-                                                  devices=devices8))
-        eng = CrpSpmm(a, n, user_B, user_C, nproc=p,
-                      config=SpmmConfig(kernel="pallas_halo"), **kw)
-        assert eng.is_halo and eng.kernel_kind == "pallas_halo"
-        b = np.asarray(fill_b(0, a.ncol, 0, n))
-        # two execs: the persistent window buffer threads across execs
-        assert rel_fro_err(a.spmm_ref(b), eng.exec(b)) <= 1e-12
-        assert rel_fro_err(a.spmm_ref(b), eng.exec(b)) <= 1e-12
-
-
-def test_crp_halo_rejects_finegrain(devices8):
-    a = banded_random_csr(500, nnz_per_row=5, bandwidth=40, seed=48)
-    user_B = BlockDist.from_row_slabs(uniform_displs(a.ncol, 4), 8)
-    user_C = BlockDist.from_row_slabs(uniform_displs(a.nrow, 4), 8)
-    with pytest.raises(ValueError, match="FINEGRAIN"):
-        CrpSpmm(a, 8, user_B, user_C, nproc=4,
-                config=SpmmConfig(kernel="pallas_halo", a2a_b_finegrain=1))
-
-
-def test_crp_halo_falls_back_on_unsupported(devices8):
-    """Plaw matrix: build_halo_plan raises, engine lands on the unfused
-    pallas seam (which may itself resolve to ragged/segsum) and stays
-    correct."""
-    # columns span > max_window rows so the uniform halo window pack raises
-    a = powerlaw_random_csr(20000, avg_degree=4, seed=49)
-    n = 8
-    user_B = BlockDist.from_row_slabs(uniform_displs(a.ncol, 4), n)
-    user_C = BlockDist.from_row_slabs(uniform_displs(a.nrow, 4), n)
-    eng = CrpSpmm(a, n, user_B, user_C, nproc=4,
-                  config=SpmmConfig(kernel="pallas_halo"))
-    assert not eng.is_halo
+@pytest.mark.parametrize("kernel", ["segsum", "triton"])
+def test_crp_powerlaw_finegrain_kernels(kernel, devices8, triton_interpret):
+    """A2A_B_FINEGRAIN=1 (exact referenced rows) on a power-law matrix with
+    hub rows, through each kernel."""
+    a = powerlaw_random_csr(1200, avg_degree=10, seed=53)
+    n = 16
+    eng = build(a, n, 4, devices8,
+                config=SpmmConfig(kernel=kernel, a2a_b_finegrain=1))
     b = np.asarray(fill_b(0, a.ncol, 0, n))
     assert rel_fro_err(a.spmm_ref(b), eng.exec(b)) <= 1e-12
-
-
-def test_crp_gather_and_ragged_kernels(devices8, monkeypatch):
-    """Round-4 kernel kinds through the any-layout engine: gather (one-hot
-    MXU reduce) and ragged with the fused pallas spill, both under the
-    full redistribution chain."""
-    a = powerlaw_random_csr(900, avg_degree=12, seed=44, dtype=np.float32)
-    n = 16
-    user_B = user_grid(a.ncol, n, 4, 1)
-    user_C = user_grid(a.nrow, n, 1, 4)
-    from crp_tpu.plan.bandwidth import calc_bandwidth_part2d
-
-    bp = calc_bandwidth_part2d(
-        4, a.nrow, n, a.ncol, a.rowptr, a.row_col_ranges_v1()
-    )
-    mesh = make_mesh_2d(bp.np_row, bp.np_col, devices=devices8)
-    b = np.asarray(fill_b(0, a.ncol, 0, n, dtype=np.float32))
-    ref = a.spmm_ref(b)
-
-    eng = CrpSpmm(a, n, user_B, user_C, nproc=4, mesh=mesh,
-                  config=SpmmConfig(kernel="gather"), dtype=np.float32)
-    assert eng._local_fn.variant == "gather"
-    assert rel_fro_err(ref, eng.exec(b)) <= 1e-5
-
-    monkeypatch.setenv("CRP_TPU_SPILL_IMPL", "pallas")
-    monkeypatch.setenv("CRP_TPU_RAGGED_TM", "128")
-    monkeypatch.setenv("CRP_TPU_RAGGED_WC", "256")
-    monkeypatch.setenv("CRP_TPU_RAGGED_MIN_NNZ", "200")  # force spill
-    eng = CrpSpmm(a, n, user_B, user_C, nproc=4, mesh=mesh,
-                  config=SpmmConfig(kernel="ragged"), dtype=np.float32)
-    assert eng._local_fn.roofline["spill_nnz"] > 0
-    assert rel_fro_err(ref, eng.exec(b)) <= 1e-5
-
-
-def test_crp_fallback_lands_on_gather(devices8, monkeypatch):
-    """The TPU sparsity-fallback chain (forced via CRP_TPU_FALLBACK on the
-    CPU mesh) through the any-layout engine: scatter sparsity refused by
-    the uniform and ragged covers lands on the gather kernel under the
-    full redistribution chain."""
-    from crp_tpu.sparse.csr import CSRMatrix
-
-    monkeypatch.setenv("CRP_TPU_FALLBACK", "gather,segsum")
-    rng = np.random.default_rng(63)
-    nr, k = 512, 20000
-    rows = np.arange(nr, dtype=np.int64).repeat(4)
-    cols = rng.integers(0, k, size=4 * nr)
-    a = CSRMatrix.from_coo(nr, k, rows, cols, np.ones(len(rows)))
-    n = 16
-    user_B = user_grid(a.ncol, n, 4, 1)
-    user_C = user_grid(a.nrow, n, 1, 4)
-    eng = CrpSpmm(a, n, user_B, user_C, nproc=4,
-                  config=SpmmConfig(kernel="pallas"), dtype=np.float32)
-    assert eng.kernel_kind == "gather"
-    b = np.asarray(fill_b(0, a.ncol, 0, n, dtype=np.float32))
-    assert rel_fro_err(a.spmm_ref(b), eng.exec(b)) <= 1e-5

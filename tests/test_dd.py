@@ -3,11 +3,11 @@
 def test_dd_segsum_nnz_cap(monkeypatch):
     """Shards past the segmented-scan compile budget refuse cleanly
     (UnsupportedSparsity naming the cap) instead of OOMing the compiler —
-    the r5b on-chip cplaw dd attempt at 10.8M nnz."""
+    a 10.8M-nnz power-law shard is past it."""
     import numpy as np
     import pytest
     from crp_tpu.kernels.dispatch import pack_local_kernel
-    from crp_tpu.kernels.spmm_pallas import UnsupportedSparsity
+    from crp_tpu.kernels.dispatch import UnsupportedSparsity
 
     monkeypatch.setenv("CRP_TPU_DD_SEGSUM_MAX_NNZ", "64")
     # degree > 128 forces the segsum path (not ELL)
@@ -18,5 +18,4 @@ def test_dd_segsum_nnz_cap(monkeypatch):
     with pytest.raises(UnsupportedSparsity, match="SEGSUM_MAX_NNZ"):
         pack_local_kernel(
             [(rowptr, colidx, val)], nrow, np.float64, kind="dd",
-            dd_skip_mxu=True,
         )

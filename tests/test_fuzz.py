@@ -39,7 +39,7 @@ def _random_case(rng):
 
 
 @pytest.mark.parametrize("trial", range(6))
-def test_fuzz_rowpara_configs(trial, devices8):
+def test_fuzz_rowpara_configs(trial, devices8, triton_interpret):
     rng = np.random.default_rng(1000 + trial)
     a, n = _random_case(rng)
     p = int(rng.choice([2, 3, 4, 7]))
@@ -47,9 +47,9 @@ def test_fuzz_rowpara_configs(trial, devices8):
         rb_p2p=int(rng.integers(0, 2)),
         rb_reidx=int(rng.integers(0, 2)),
         overlap=int(rng.random() < 0.3),
-        kernel=str(rng.choice(["segsum", "ell", "dd", "dd_mxu"])),
+        kernel=str(rng.choice(["segsum", "ell", "dd", "triton"])),
     )
-    if cfg.kernel in ("dd", "dd_mxu") and cfg.overlap:
+    if cfg.kernel == "dd" and cfg.overlap:
         cfg.overlap = 0
     displs = csr_row_partition(a.rowptr, p)
     b_displs = displs if a.nrow == a.ncol else uniform_displs(a.ncol, p)
@@ -77,8 +77,8 @@ def test_fuzz_para2d_planner(trial, devices8):
 
 
 @pytest.mark.parametrize("trial", range(3))
-def test_fuzz_halo_banded(trial, devices8):
-    """Fused halo kernel on random banded matrices and shard counts."""
+def test_fuzz_triton_banded(trial, devices8, triton_interpret):
+    """The Pallas CSR kernel on random banded matrices and shard counts."""
     rng = np.random.default_rng(3000 + trial)
     a = banded_random_csr(
         int(rng.integers(400, 2500)),
@@ -91,14 +91,14 @@ def test_fuzz_halo_banded(trial, devices8):
     displs = csr_row_partition(a.rowptr, p)
     eng = RowParaSpmm(a, displs, displs, n,
                       mesh=make_mesh_1d(p, devices=devices8),
-                      config=SpmmConfig(kernel="pallas_halo"))
+                      config=SpmmConfig(kernel="triton"))
     b = np.asarray(fill_b(0, a.ncol, 0, n))
     err = rel_fro_err(a.spmm_ref(b), eng.exec(b))
-    assert err <= 1e-12, (err, a.nrow, a.nnz, n, p, eng.is_halo)
+    assert err <= 1e-12, (err, a.nrow, a.nnz, n, p)
 
 
 @pytest.mark.parametrize("trial", range(4))
-def test_fuzz_crp_configs(trial, devices8):
+def test_fuzz_crp_configs(trial, devices8, triton_interpret):
     """Any-layout engine across its full switch matrix (rb_p2p / overlap /
     finegrain / kernel), random matrices, random user layouts."""
     from crp_tpu.engine.crp import CrpSpmm
@@ -114,21 +114,10 @@ def test_fuzz_crp_configs(trial, devices8):
         rb_p2p=int(rng.integers(0, 2)),
         overlap=int(rng.random() < 0.4),
         a2a_b_finegrain=int(rng.integers(0, 2)),
-        kernel=str(
-            rng.choice(
-                ["segsum", "ell", "pallas", "dd", "dd_mxu", "pallas_halo"]
-            )
-        ),
+        kernel=str(rng.choice(["segsum", "ell", "triton", "dd"])),
     )
-    if cfg.kernel in ("dd", "dd_mxu") and cfg.overlap:
+    if cfg.kernel == "dd" and cfg.overlap:
         cfg.overlap = 0
-    if cfg.kernel == "pallas_halo":
-        # halo implements the coarse geometry and fuses the exchange; the
-        # interpreter deadlocks when blocking remote waits occupy all 8
-        # host devices — keep the grid at <= 7
-        cfg.a2a_b_finegrain = 0
-        cfg.overlap = 0
-        p = 4
     # user layouts are one block per device (reference contract: every
     # rank owns one B block and one C block) — random p-factor grids
     def grid(rows, cols):
@@ -153,16 +142,12 @@ def test_fuzz_crp_configs(trial, devices8):
 
 
 @pytest.mark.parametrize("trial", range(4))
-def test_fuzz_any_csr_lands_somewhere(trial, devices8, monkeypatch):
-    """The sparsity-fallback guarantee (dispatch.pack_with_fallback): ANY
-    random scatter CSR through kernel="pallas" with the forced TPU chain
-    must pack — landing on ragged, gather, or segsum as the structure
-    dictates — and agree with the fp64 reference.  The reference's
-    MKL/cuSPARSE seam gives this "any CSR works" guarantee for free
-    (src/rowpara_spmm.c:398-407); this pins the TPU equivalent."""
+def test_fuzz_any_csr_triton(trial, devices8, triton_interpret):
+    """ANY random scatter CSR runs through kernel="triton" in fp32 and
+    agrees with the fp64 reference — the "any CSR works" guarantee the
+    reference's MKL/cuSPARSE seam gives (src/rowpara_spmm.c:398-407)."""
     from crp_tpu.sparse.csr import CSRMatrix
 
-    monkeypatch.setenv("CRP_TPU_FALLBACK", "gather,segsum")
     rng = np.random.default_rng(5000 + trial)
     nr = int(rng.integers(100, 800))
     k = int(rng.integers(1000, 30000))
@@ -179,7 +164,7 @@ def test_fuzz_any_csr_lands_somewhere(trial, devices8, monkeypatch):
         a, displs, uniform_displs(a.ncol, p), n,
         mesh=make_mesh_1d(p, devices=devices8),
         config=SpmmConfig(
-            kernel="pallas", rb_reidx=int(rng.random() < 0.5)
+            kernel="triton", rb_reidx=int(rng.random() < 0.5)
         ),
         dtype=np.float32,
     )

@@ -80,33 +80,9 @@ def test_ell_kernel_padded_rows():
         pack_ell(a.rowptr, a.colidx, a.val, a.nrow, L=1)
 
 
-def test_pallas_window_kernel_interpret():
-    """Windowed dense-tile kernel (interpret mode) vs scipy, n not 128-aligned."""
-    import jax.numpy as jnp
-    from crp_tpu.kernels.spmm_pallas import (
-        pack_window_dense, spmm_window_pallas, pad_b_for_window,
-    )
-
-    a = banded_random_csr(700, nnz_per_row=6, bandwidth=40, seed=28)
-    b = np.asarray(fill_b(0, a.ncol, 0, 48))
-    packed = pack_window_dense(a.rowptr, a.colidx, a.val, a.ncol, TM=256,
-                               dtype=np.float64)
-    bp = jnp.asarray(pad_b_for_window(b, packed))
-    c = np.asarray(spmm_window_pallas(packed, bp, interpret=True))[: a.nrow]
-    assert rel_fro_err(a.spmm_ref(b), c) <= 1e-12
-
-
-def test_pallas_pack_rejects_wide_windows():
-    from crp_tpu.kernels.spmm_pallas import pack_window_dense, UnsupportedSparsity
-
-    a = powerlaw_random_csr(3000, avg_degree=5, seed=29)
-    with pytest.raises(UnsupportedSparsity):
-        pack_window_dense(a.rowptr, a.colidx, a.val, a.ncol, max_window=256)
-
-
 def test_dd_ell_kernel_fp64_class_accuracy():
     """Double-float ELL kernel (bounded row degree): <=1e-12 vs the fp64
-    reference using only fp32 device arithmetic (TPU fp64-parity,
+    reference using only fp32 device arithmetic (fp64 parity on fp32-only hardware,
     SURVEY.md section 7)."""
     import jax
     from crp_tpu.kernels.spmm_dd import (
@@ -150,183 +126,3 @@ def test_dd_split_roundtrip():
     hi, lo = split_f64(x)
     err = np.abs(hi.astype(np.float64) + lo.astype(np.float64) - x)
     assert (err / np.abs(x)).max() <= 2 ** -45
-
-
-def test_pallas_x3_precision_mode():
-    """Hand-rolled bf16x3 pass scheme (interpret mode): ~1e-6 class."""
-    import jax.numpy as jnp
-    from crp_tpu.kernels.spmm_pallas import (
-        pack_window_dense, spmm_window_pallas, pad_b_for_window,
-    )
-
-    a = banded_random_csr(700, nnz_per_row=6, bandwidth=40, seed=44)
-    b = np.asarray(fill_b(0, a.ncol, 0, 32, dtype=np.float32))
-    packed = pack_window_dense(a.rowptr, a.colidx, a.val, a.ncol,
-                               dtype=np.float32)
-    bp = jnp.asarray(pad_b_for_window(b, packed))
-    c = np.asarray(
-        spmm_window_pallas(packed, bp, precision="x3", interpret=True)
-    )[: a.nrow]
-    assert rel_fro_err(a.spmm_ref(b.astype(np.float64)), c) <= 1e-5
-
-
-def test_pallas_supergroup_window_reuse_interpret():
-    """Super-grouped windowed kernel (one B super-window per SG groups)
-    matches the reference; exercised through the single-shard dispatch
-    path the TPU headline bench uses."""
-    from crp_tpu.kernels.dispatch import pack_local_kernel
-    from crp_tpu.kernels.spmm_pallas import plan_supergroups
-
-    a = banded_random_csr(3000, nnz_per_row=7, bandwidth=80, seed=90,
-                          dtype=np.float32)
-    arrays, local_fn = pack_local_kernel(
-        [(a.rowptr, a.colidx.astype(np.int32), a.val)], a.nrow, np.float32,
-        "pallas",
-    )
-    assert len(arrays) == 3, "single banded shard must select the sg variant"
-    b = np.asarray(fill_b(0, a.ncol, 0, 48, dtype=np.float32))
-    bp = np.zeros((local_fn.min_b_rows, 48), np.float32)
-    bp[: a.ncol] = b
-    c = np.asarray(local_fn((arrays[0][0], arrays[1][0], arrays[2][0]), bp))
-    ref = a.spmm_ref(b.astype(np.float64))
-    assert rel_fro_err(ref, c[: a.nrow].astype(np.float64)) <= 1e-5
-
-
-def test_plan_supergroups_rules():
-    from crp_tpu.kernels.spmm_pallas import plan_supergroups
-
-    # monotone, tight band: large SG chosen
-    ws = (np.arange(64, dtype=np.int32) * 128)
-    got = plan_supergroups(ws, 1024, 256, 4)
-    assert got is not None and got[0] >= 2
-    SG, Wsg, bases = got
-    assert Wsg % 128 == 0 and len(bases) == -(-64 // SG)
-    # non-monotone: rejected
-    ws2 = ws.copy(); ws2[10] = 0; ws2[9] = 1280
-    assert plan_supergroups(ws2, 1024, 256, 4) is None
-
-
-def test_pallas_supergroup_presplit_x3_interpret():
-    """x3 with pack-time bf16-split A panels (the headline bench path)."""
-    from crp_tpu.kernels.dispatch import pack_local_kernel
-
-    a = banded_random_csr(3000, nnz_per_row=7, bandwidth=80, seed=91,
-                          dtype=np.float32)
-    arrays, local_fn = pack_local_kernel(
-        [(a.rowptr, a.colidx.astype(np.int32), a.val)], a.nrow, np.float32,
-        "pallas", mxu_precision="x3",
-    )
-    assert len(arrays) == 4, "x3 single-shard pack must pre-split A"
-    b = np.asarray(fill_b(0, a.ncol, 0, 48, dtype=np.float32))
-    bp = np.zeros((local_fn.min_b_rows, 48), np.float32)
-    bp[: a.ncol] = b
-    c = np.asarray(local_fn(tuple(x[0] for x in arrays), bp))
-    ref = a.spmm_ref(b.astype(np.float64))
-    assert rel_fro_err(ref, c[: a.nrow].astype(np.float64)) <= 1e-4
-
-
-@pytest.mark.parametrize("n", [512, 100])
-def test_pallas_supergroup_multi_ntile(n):
-    """sg variant with several N tiles per super-window (NJ > 1) and with
-    an n needing padding."""
-    from crp_tpu.kernels.dispatch import pack_local_kernel
-
-    a = banded_random_csr(2500, nnz_per_row=6, bandwidth=60, seed=92,
-                          dtype=np.float32)
-    arrays, local_fn = pack_local_kernel(
-        [(a.rowptr, a.colidx.astype(np.int32), a.val)], a.nrow, np.float32,
-        "pallas",
-    )
-    b = np.asarray(fill_b(0, a.ncol, 0, n, dtype=np.float32))
-    bp = np.zeros((local_fn.min_b_rows, n), np.float32)
-    bp[: a.ncol] = b
-    c = np.asarray(local_fn(tuple(x[0] for x in arrays), bp))
-    ref = a.spmm_ref(b.astype(np.float64))
-    assert rel_fro_err(ref, c[: a.nrow].astype(np.float64)) <= 1e-5
-
-
-def test_pallas_supergroup_fp64_accumulates_fp64():
-    """ADVICE r1: the sg variant must carry the fp64 accumulator path like
-    the non-sg kernel — kernel='pallas' with float64 data used to silently
-    accumulate in fp32 (~2.5e-8 rel err)."""
-    from crp_tpu.kernels.dispatch import pack_local_kernel
-
-    a = banded_random_csr(3000, nnz_per_row=7, bandwidth=80, seed=93,
-                          dtype=np.float64)
-    arrays, local_fn = pack_local_kernel(
-        [(a.rowptr, a.colidx.astype(np.int32), a.val)], a.nrow, np.float64,
-        "pallas",
-    )
-    assert len(arrays) == 3, "single banded shard must select the sg variant"
-    b = np.asarray(fill_b(0, a.ncol, 0, 48, dtype=np.float64))
-    bp = np.zeros((local_fn.min_b_rows, 48), np.float64)
-    bp[: a.ncol] = b
-    c = np.asarray(local_fn(tuple(x[0] for x in arrays), bp))
-    assert c.dtype == np.float64
-    assert rel_fro_err(a.spmm_ref(b), c[: a.nrow]) <= 1e-12
-
-
-def test_pallas_supergroup_presplit_ab_interpret():
-    """A+B both pre-split to bf16 halves in HBM (pure-MXU kernel): x3
-    matches the in-kernel-split scheme's accuracy; passes=1 is the bf16
-    operating point (~1e-3)."""
-    import jax.numpy as jnp
-    import ml_dtypes
-
-    from crp_tpu.kernels.spmm_pallas import (
-        TK, pack_window_dense, spmm_window_pallas_sg_bf16,
-        spmm_window_pallas_sg_presplit_ab, split_b_bf16,
-    )
-
-    a = banded_random_csr(3000, nnz_per_row=7, bandwidth=80, seed=92,
-                          dtype=np.float32)
-    p = pack_window_dense(a.rowptr, a.colidx, a.val, a.ncol)
-    W, TM, G = p.W, p.TM, p.G
-    ah = p.tiles.astype(ml_dtypes.bfloat16)
-    al = (p.tiles - ah.astype(np.float32)).astype(ml_dtypes.bfloat16)
-    ws = np.asarray(p.ws, np.int64)
-    SG = next(d for d in range(4, 1, -1) if G % d == 0)
-    sgc = G // SG
-    bases = ws[::SG][:sgc]
-    spans = [int(ws[min((s + 1) * SG, G) - 1] + W - bases[s])
-             for s in range(sgc)]
-    Wsg = -(-max(spans) // TK) * TK
-    n = 48
-    b = np.asarray(fill_b(0, a.ncol, 0, n, dtype=np.float32))
-    bp = np.zeros((int(bases.max()) + Wsg, n), np.float32)
-    bp[: a.ncol] = b
-    bh, bl = split_b_bf16(jnp.asarray(bp))
-    ref = a.spmm_ref(b.astype(np.float64))
-    c3 = spmm_window_pallas_sg_presplit_ab(
-        p.ws, bases.astype(np.int32), ah, al, bh, bl, SG, Wsg, W, TM,
-        Wc=W, interpret=True,
-    )
-    assert rel_fro_err(ref, np.asarray(c3[: a.nrow]).astype(np.float64)) <= 1e-5
-    c1 = spmm_window_pallas_sg_bf16(
-        p.ws, bases.astype(np.int32), ah, bh, SG, Wsg, W, TM,
-        Wc=W, interpret=True,
-    )
-    assert rel_fro_err(ref, np.asarray(c1[: a.nrow]).astype(np.float64)) <= 1e-2
-
-
-def test_pallas_supergroup_bf16_default_dispatch():
-    """mxu_precision="default" on a super-grouped fp32 shard selects the
-    1-pass bf16 kernel: bf16-class accuracy, A packed as bf16 hi only."""
-    from crp_tpu.kernels.dispatch import pack_local_kernel
-
-    a = banded_random_csr(3000, nnz_per_row=7, bandwidth=80, seed=93,
-                          dtype=np.float32)
-    arrays, local_fn = pack_local_kernel(
-        [(a.rowptr, a.colidx.astype(np.int32), a.val)], a.nrow, np.float32,
-        "pallas", mxu_precision="default",
-    )
-    assert len(arrays) == 3 and arrays[1].dtype.name == "bfloat16"
-    assert local_fn.roofline["b_itemsize"] == 2
-    n = 48
-    b = np.asarray(fill_b(0, a.ncol, 0, n, dtype=np.float32))
-    bp = np.zeros((local_fn.min_b_rows, n), np.float32)
-    bp[: a.ncol] = b
-    c = np.asarray(local_fn((arrays[0][0], arrays[1][0], arrays[2][0]), bp))
-    ref = a.spmm_ref(b.astype(np.float64))
-    err = rel_fro_err(ref, c[: a.nrow].astype(np.float64))
-    assert 1e-5 < err <= 1e-2, err  # bf16-class, not silently higher-prec

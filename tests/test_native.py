@@ -60,20 +60,6 @@ def test_native_coo2csr_matches_numpy():
 
 
 @needs_native
-def test_native_pack_window_matches_numpy(monkeypatch):
-    import crp_tpu.kernels.spmm_pallas as sp
-
-    a = banded_random_csr(2000, nnz_per_row=8, bandwidth=100, seed=62,
-                          dtype=np.float32)
-    p_native = sp.pack_window_dense(a.rowptr, a.colidx, a.val, a.ncol, TM=256)
-    monkeypatch.setattr(native, "pack_window_flat_f32", lambda *a, **k: None)
-    p_np = sp.pack_window_dense(a.rowptr, a.colidx, a.val, a.ncol, TM=256)
-    np.testing.assert_array_equal(p_native.ws, p_np.ws)
-    np.testing.assert_array_equal(p_native.tiles, p_np.tiles)
-    assert (p_native.W, p_native.T, p_native.G) == (p_np.W, p_np.T, p_np.G)
-
-
-@needs_native
 def test_native_mtx_reader(tmp_path):
     from crp_tpu.sparse.mmio import mm_read_sparse, write_mtx
 
@@ -91,30 +77,3 @@ def test_native_mtx_reader(tmp_path):
     c = mm_read_sparse(f2)
     expect = np.array([[1.0, 1, 0], [1, 0, 1], [0, 1, 0]])
     np.testing.assert_array_equal(c.to_dense(), expect)
-
-
-def test_native_flat_pack_matches_numpy():
-    """Flat-panel native packer vs the numpy fallback, including chunk
-    padding of W."""
-    from crp_tpu import native
-    from crp_tpu.kernels.spmm_pallas import pack_window_dense
-
-    if not (native._load() and native.AVAILABLE):
-        pytest.skip("no native lib")
-    a = banded_random_csr(3000, nnz_per_row=8, bandwidth=900, seed=50)
-    ref = None
-    try:
-        import os
-
-        os.environ["CRP_TPU_NO_NATIVE"] = "1"
-        native._lib_saved, native._lib = native._lib, None
-        ref = pack_window_dense(a.rowptr, a.colidx, a.val.astype(np.float32),
-                                a.ncol, dtype=np.float32)
-    finally:
-        os.environ.pop("CRP_TPU_NO_NATIVE", None)
-        native._lib = native._lib_saved
-    got = pack_window_dense(a.rowptr, a.colidx, a.val.astype(np.float32),
-                            a.ncol, dtype=np.float32)
-    assert got.W == ref.W and got.G == ref.G
-    np.testing.assert_array_equal(got.ws, ref.ws)
-    np.testing.assert_array_equal(got.tiles, ref.tiles)

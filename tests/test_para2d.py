@@ -143,52 +143,20 @@ def test_para2d_rectangular_planner(devices8):
     assert rel_fro_err(a.spmm_ref(b), eng.exec(b)) <= 1e-12
 
 
-def test_para2d_gather_and_pallas_spill(devices8, monkeypatch):
-    """Round-4 kernel kinds through the 2D engine: the gather one-hot
-    reduce and the fused pallas spill formulation both shard over pm."""
+@pytest.mark.parametrize("kernel", ["ell", "triton"])
+@pytest.mark.parametrize("pm,pn", [(2, 2), (4, 1)])
+def test_para2d_local_kernels_powerlaw(kernel, pm, pn, devices8,
+                                       triton_interpret):
+    """The kept local kernels shard over pm and replicate over pn: a
+    power-law matrix (hub rows, scattered columns) through the 2D engine
+    matches the fp64 reference."""
     from crp_tpu.config import SpmmConfig
 
-    a = powerlaw_random_csr(1600, avg_degree=12, seed=41,
-                            dtype=np.float32)
+    a = powerlaw_random_csr(1600, avg_degree=12, seed=41)
     n = 16
-    plan = force_plan(a, n, 2, 2)
-    mesh = make_mesh_2d(2, 2, devices=devices8)
-    b = np.asarray(fill_b(0, a.ncol, 0, n, dtype=np.float32))
-    ref = a.spmm_ref(b)
-
-    eng = Para2dSpmm(a, plan, mesh=mesh, dtype=np.float32,
-                     config=SpmmConfig(kernel="gather"))
-    assert eng._local_fn.variant == "gather"
-    assert rel_fro_err(ref, eng.exec(b)) <= 1e-5
-
-    monkeypatch.setenv("CRP_TPU_SPILL_IMPL", "pallas")
-    monkeypatch.setenv("CRP_TPU_RAGGED_TM", "128")
-    monkeypatch.setenv("CRP_TPU_RAGGED_WC", "256")
-    monkeypatch.setenv("CRP_TPU_RAGGED_MIN_NNZ", "40")
-    eng = Para2dSpmm(a, plan, mesh=mesh, dtype=np.float32,
-                     config=SpmmConfig(kernel="ragged"))
-    assert eng._local_fn.roofline["spill_nnz"] > 0
-    assert rel_fro_err(ref, eng.exec(b)) <= 1e-5
-
-
-def test_para2d_fallback_lands_on_gather(devices8, monkeypatch):
-    """The TPU sparsity-fallback chain (forced via CRP_TPU_FALLBACK on the
-    CPU mesh) through the 2D engine: a pure-scatter matrix refused by the
-    uniform and ragged covers lands on the gather kernel."""
-    from crp_tpu.config import SpmmConfig
-    from crp_tpu.sparse.csr import CSRMatrix
-
-    monkeypatch.setenv("CRP_TPU_FALLBACK", "gather,segsum")
-    rng = np.random.default_rng(62)
-    nr, k = 512, 20000
-    rows = np.arange(nr, dtype=np.int64).repeat(4)
-    cols = rng.integers(0, k, size=4 * nr)
-    a = CSRMatrix.from_coo(nr, k, rows, cols, np.ones(len(rows)))
-    n = 16
-    plan = force_plan(a, n, 2, 2)
-    mesh = make_mesh_2d(2, 2, devices=devices8)
-    eng = Para2dSpmm(a, plan, mesh=mesh, dtype=np.float32,
-                     config=SpmmConfig(kernel="pallas", rb_reidx=0))
-    assert eng.kernel_kind == "gather"
-    b = np.asarray(fill_b(0, a.ncol, 0, n, dtype=np.float32))
-    assert rel_fro_err(a.spmm_ref(b), eng.exec(b)) <= 1e-5
+    plan = force_plan(a, n, pm, pn)
+    mesh = make_mesh_2d(pm, pn, devices=devices8)
+    b = np.asarray(fill_b(0, a.ncol, 0, n))
+    eng = Para2dSpmm(a, plan, mesh=mesh, config=SpmmConfig(kernel=kernel))
+    assert eng.kernel_kind == kernel
+    assert rel_fro_err(a.spmm_ref(b), eng.exec(b)) <= 1e-12

@@ -1,9 +1,7 @@
-"""Round-3 polish regressions: pack-cache fingerprinting, the shared
-ragged-step stacking helper, the halo precision resolver, and the NaN-safe
-native bf16 cast."""
+"""Pack-cache regressions: the engine's memoized pack is reused on the same
+matrix, invalidated by any content edit, and kept to a single slot."""
 
 import numpy as np
-import pytest
 
 from crp_tpu.config import SpmmConfig
 from crp_tpu.engine.rowpara import RowParaSpmm
@@ -40,81 +38,6 @@ def test_pack_cache_reused_and_invalidated(devices8):
     assert rel_fro_err(a.spmm_ref(b), eng3.exec(b)) <= 1e-12
 
 
-def test_pack_cache_keyed_on_ragged_env(devices8, monkeypatch):
-    """Pack-affecting env knobs are part of the cache key."""
-    a = banded_random_csr(400, nnz_per_row=7, bandwidth=40, seed=78)
-    eng1 = _build(a, 2, 8, devices8, kernel="segsum")
-    monkeypatch.setenv("CRP_TPU_RAGGED_WC", "256")
-    eng2 = _build(a, 2, 8, devices8, kernel="segsum")
-    assert eng2._local_fn is not eng1._local_fn
-
-
-def test_extend_and_stack_steps_invariants():
-    """Empty shards get one dummy chunk per group (first=1, start 0);
-    short shards pad out to G with dummies; trailing S padding repeats the
-    LAST group with first=0 (no-op accumulate)."""
-    from crp_tpu.kernels.dispatch import _extend_and_stack_steps
-
-    G = 4
-    s0 = (np.array([0, 128], np.int32),      # shard 0: 2 chunks, G_s=2
-          np.array([0, 1], np.int32),
-          np.array([1, 1], np.int32), 2)
-    a_g, a_first, a_starts, S = _extend_and_stack_steps([s0, None], G)
-    assert a_g.shape == (2, S) and S == G  # shard0: 2 + 2 dummies = 4
-    # shard 0: real steps then dummy groups 2, 3 (each initialized)
-    np.testing.assert_array_equal(a_g[0], [0, 1, 2, 3])
-    np.testing.assert_array_equal(a_first[0], [1, 1, 1, 1])
-    np.testing.assert_array_equal(a_starts[0], [0, 128, 0, 0])
-    # empty shard: one dummy per group
-    np.testing.assert_array_equal(a_g[1], np.arange(G))
-    np.testing.assert_array_equal(a_first[1], np.ones(G, np.int32))
-
-    # ragged lengths: shard with 3 chunks in group 0 forces S padding on
-    # the shorter shard: padded steps target the last group, first=0
-    s1 = (np.array([0, 64, 128, 0, 0], np.int32),
-          np.array([0, 0, 0, 1, 2], np.int32),
-          np.array([1, 0, 0, 1, 1], np.int32), 3)
-    a_g, a_first, a_starts, S = _extend_and_stack_steps([s1, s0], 3)
-    assert S == 5
-    np.testing.assert_array_equal(a_g[1], [0, 1, 2, 2, 2])
-    np.testing.assert_array_equal(a_first[1], [1, 1, 1, 0, 0])
-    # every group of every shard is initialized exactly once
-    for i in range(2):
-        for g in range(3):
-            firsts = a_first[i][a_g[i] == g]
-            assert firsts.sum() == 1 and firsts[0] == 1
-
-
-def test_resolve_halo_precision():
-    import jax
-
-    from crp_tpu.kernels.spmm_halo import resolve_halo_precision
-
-    assert resolve_halo_precision("default") == jax.lax.Precision.DEFAULT
-    assert resolve_halo_precision("x3") == "x3"
-    assert resolve_halo_precision("highest") is None
-
-
-def test_native_bf16_cast_nan_stays_nan():
-    from crp_tpu import native
-
-    if native._load() is None:
-        pytest.skip("native toolchain unavailable")
-    import ml_dtypes
-
-    x = np.array(
-        [np.nan, -np.nan, np.inf, -np.inf, 1.0, 3.14159, 65504.0],
-        dtype=np.float32,
-    )
-    out = native.bf16_cast(x)
-    assert out is not None
-    got = np.asarray(out).astype(np.float32)
-    assert np.isnan(got[0]) and np.isnan(got[1])
-    assert np.isposinf(got[2]) and np.isneginf(got[3])
-    ref = x[4:].astype(ml_dtypes.bfloat16).astype(np.float32)
-    np.testing.assert_array_equal(got[4:], ref)
-
-
 def test_pack_cache_catches_single_element_edit(devices8):
     """Review r3: the sampled fingerprint missed edits off the 1-in-stride
     positions; the full digest must catch ANY single value edit."""
@@ -136,40 +59,3 @@ def test_pack_cache_single_slot(devices8):
     _build(a, 4, 8, devices8, kernel="segsum")
     _build(a, 4, 8, devices8, kernel="ell")
     assert len(a._pack_cache) == 1
-
-
-def test_dd_mxu_empty_shard_falls_back(devices8):
-    """Review r3: _pack_dd_mxu crashed with TypeError (not
-    UnsupportedSparsity) when any shard had zero nnz, skipping the dd
-    fallback chain.  All nnz in the first rows -> later shards empty."""
-    from crp_tpu.sparse.csr import CSRMatrix
-
-    m = 64
-    rowptr = np.zeros(m + 1, dtype=np.int64)
-    rowptr[1:4] = [2, 4, 6]
-    rowptr[4:] = 6
-    colidx = np.array([0, 5, 3, 9, 1, 2], dtype=np.int32)
-    val = np.linspace(1.0, 2.0, 6)
-    a = CSRMatrix(m, m, rowptr, colidx, val)
-    n = 8
-    b = np.asarray(fill_b(0, m, 0, n))
-    eng = _build(a, 4, n, devices8, kernel="dd_mxu")
-    assert rel_fro_err(a.spmm_ref(b), eng.exec(b)) <= 1e-12
-
-
-def test_projection_rectangular_matrix():
-    """Review r3: project_exec_1d shared one displs array between A row
-    slicing and B ownership — rectangular (ncol > nrow) inputs crashed."""
-    from crp_tpu.plan.project import project_exec_1d
-    from crp_tpu.sparse.csr import CSRMatrix
-
-    rng = np.random.default_rng(3)
-    m, k, nnz_per_row = 300, 500, 5
-    rowptr = np.arange(0, (m + 1) * nnz_per_row, nnz_per_row, dtype=np.int64)
-    colidx = rng.integers(0, k, size=m * nnz_per_row).astype(np.int32)
-    for i in range(m):  # sorted within rows
-        colidx[i * nnz_per_row : (i + 1) * nnz_per_row].sort()
-    val = rng.standard_normal(m * nnz_per_row)
-    a = CSRMatrix(m, k, rowptr, colidx, val)
-    rec = project_exec_1d(a, 32, 3, mxu_prec="x3")
-    assert rec["projected_s"] > 0

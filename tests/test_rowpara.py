@@ -44,11 +44,12 @@ def test_rowpara_matches_reference(p, gen, kw, devices8):
     dict(rb_p2p=0),                       # single padded all_to_all
     dict(rb_p2p=1),                       # ppermute p2p ring
     dict(overlap=1),                      # fused ring + partial compute
-    dict(overlap=1, kernel="pallas"),     # self part on the windowed kernel
+    dict(overlap=1, kernel="ell"),        # self part on the ELL kernel
+    dict(overlap=1, kernel="triton"),     # self part on the Pallas kernel
 ])
 @pytest.mark.parametrize("p", [3, 8])
-def test_rowpara_exchange_modes(p, mode, devices8):
-    """All exchange schedules (RP_SPMM_P2P analogs + the TPU overlap design)
+def test_rowpara_exchange_modes(p, mode, devices8, triton_interpret):
+    """All exchange schedules (RP_SPMM_P2P analogs + the overlap design)
     produce the identical <=1e-12 result, including non-power-of-two p."""
     a = banded_random_csr(450, nnz_per_row=7, bandwidth=60, seed=28)
     n = 16
@@ -69,7 +70,7 @@ def test_rowpara_overlap_powerlaw(devices8):
 @pytest.mark.parametrize("p", [1, 4])
 def test_rowpara_dd_kernel_fp32_hardware(p, devices8):
     """The double-float kernel reaches the reference's <=1e-12 acceptance
-    with fp32-only device arithmetic (the TPU fp64-parity path)."""
+    with fp32-only device arithmetic (fp64 parity without fp64 units)."""
     import jax
 
     a = banded_random_csr(400, nnz_per_row=7, bandwidth=40, seed=34)
@@ -134,7 +135,7 @@ def test_rowpara_audit_matches_planner(devices8):
 
 
 def test_rowpara_fp32_tolerance(devices8):
-    """fp32 path (the TPU default dtype) stays within fp32 tolerance."""
+    """fp32 path stays within fp32 tolerance."""
     a = banded_random_csr(300, nnz_per_row=6, bandwidth=20, seed=25)
     displs = csr_row_partition(a.rowptr, 4)
     mesh = make_mesh_1d(4, devices=devices8)
@@ -155,19 +156,20 @@ def test_rowpara_ell_kernel(devices8):
     assert rel_fro_err(a.spmm_ref(b), eng.exec(b)) <= 1e-12
 
 
-def test_rowpara_pallas_kernel(devices8):
-    """Engine with the Pallas windowed kernel (interpret mode on CPU)."""
+def test_rowpara_triton_kernel(devices8, triton_interpret):
+    """Engine with the Pallas CSR kernel (interpret mode on CPU)."""
     a = banded_random_csr(300, nnz_per_row=6, bandwidth=25, seed=27)
     displs = csr_row_partition(a.rowptr, 4)
     mesh = make_mesh_1d(4, devices=devices8)
     eng = RowParaSpmm(a, displs, displs, 8, mesh=mesh,
-                      config=SpmmConfig(kernel="pallas"))
+                      config=SpmmConfig(kernel="triton"))
+    assert eng.kernel_kind == "triton"
     b = np.asarray(fill_b(0, a.ncol, 0, 8))
     assert rel_fro_err(a.spmm_ref(b), eng.exec(b)) <= 1e-12
 
 
 def test_rowpara_bfloat16(devices8):
-    """bf16 storage + compute end-to-end (the TPU memory-saving mode)."""
+    """bf16 storage + compute end-to-end (the memory-saving mode)."""
     import jax.numpy as jnp
 
     a = banded_random_csr(400, nnz_per_row=6, bandwidth=30, seed=41)
@@ -242,11 +244,11 @@ def test_bc_layout_col_major_view(devices8):
         )
 
 
-@pytest.mark.parametrize("kernel", ["segsum", "pallas", "ragged", "gather"])
-def test_n_equals_one_spmv_degenerate(kernel, devices8):
+@pytest.mark.parametrize("kernel", ["segsum", "ell", "triton", "dd"])
+def test_n_equals_one_spmv_degenerate(kernel, devices8, triton_interpret):
     """n = 1 (the SpMV degenerate): every kernel pads the n-tile internally
     and slices back; the reference supports any glb_n >= 1 implicitly."""
-    dtype = np.float32 if kernel == "gather" else np.float64
+    dtype = np.float64
     a = banded_random_csr(600, nnz_per_row=7, bandwidth=50, seed=91,
                           dtype=dtype)
     displs = csr_row_partition(a.rowptr, 2)

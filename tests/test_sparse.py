@@ -122,16 +122,6 @@ def test_plan2d_save_load_roundtrip(tmp_path):
         np.testing.assert_array_equal(getattr(got, f), getattr(plan, f))
 
 
-def test_make_mesh_auto_shapes(devices8):
-    from crp_tpu.shard.layout import make_mesh_auto
-
-    for pm, pn in [(8, 1), (4, 2), (2, 4), (2, 2)]:
-        mesh = make_mesh_auto(pm, pn, devices=devices8)
-        assert mesh.devices.shape == (pm, pn)
-        assert mesh.axis_names == ("pm", "pn")
-        assert len({d.id for d in mesh.devices.flat}) == pm * pn
-
-
 def test_mmio_pattern_and_integer_fields(tmp_path):
     """Reference reads real/pattern/integer .mtx (mmio_utils.c:11-125);
     pattern entries become 1.0, symmetric storage is mirrored."""
